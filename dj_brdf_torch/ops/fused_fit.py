@@ -1,0 +1,199 @@
+"""The fused fit step: loss and gradient in one pass over the samples.
+
+On CUDA tensors this runs the hand-written Hopper kernel
+``csrc/fused_fit.cu`` (built on first use, see :mod:`._build`); on CPU
+tensors it runs the kernel's plain version,
+:func:`~dj_brdf_torch.ops.soa.ggx_lsq_fwdbwd_soa` or
+:func:`~dj_brdf_torch.ops.soa.beckmann_lsq_fwdbwd_soa`. A CUDA tensor
+never reaches the plain version: the kernel runs, or the call raises.
+
+Gradients are w.r.t. the 8 constrained parameters
+[ax, ay, rho, txn, tyn, f0r, f0g, f0b]; the chain through
+``fit.lsq.raw_to_model`` comes from torch autograd around
+:class:`FusedFitLoss`.
+
+Counterpart of ``dj_brdf_tpu/ops/fused_fit.py``. The TPU knobs
+``block_rows``, ``interpret``, ``adjoint`` and ``pad_to_block`` have no
+counterpart: the CUDA kernel masks its own ragged tail.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from dj_brdf_torch.ops import soa
+
+#: pass-1 launches of the CUDA kernel in this process (plain-version
+#: calls on CPU tensors do not count)
+LAUNCHES = 0
+
+FAMILIES = {"ggx": 0, "beck": 1}
+_PLAIN = {"ggx": soa.ggx_lsq_fwdbwd_soa, "beck": soa.beckmann_lsq_fwdbwd_soa}
+_LIB = "fused_fit"
+
+
+@functools.cache
+def _lib():
+    """The built kernel library with its C signatures declared; built on
+    first use."""
+    from dj_brdf_torch.ops import _build
+
+    lib = _build.load(_LIB)
+    ptr = ctypes.c_void_p
+    lib.djbt_fused_fit.argtypes = ([ctypes.c_int, ctypes.c_int] + [ptr] * 10
+                                   + [ctypes.c_longlong, ctypes.c_int,
+                                      ctypes.c_int, ptr, ptr, ptr])
+    lib.djbt_fused_fit.restype = ctypes.c_int
+    lib.djbt_fused_fit_tile.argtypes = []
+    lib.djbt_fused_fit_tile.restype = ctypes.c_int
+    lib.djbt_error_string.argtypes = [ctypes.c_int]
+    lib.djbt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(pvecs, dirs, tgts, family):
+    if family not in FAMILIES:
+        raise ValueError(f"family must be 'ggx' or 'beck', got {family!r}")
+    tensors = (pvecs, *dirs, *tgts)
+    device = pvecs.device
+    if any(t.device != device for t in tensors):
+        raise ValueError("fused fit: all tensors must be on one device, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("fused fit: all tensors must be float32")
+    m = pvecs.shape[0]
+    n = dirs[0].shape[-1]
+    if pvecs.shape != (m, 8) or m == 0:
+        raise ValueError(f"pvecs must be (M, 8) with M > 0, got "
+                         f"{tuple(pvecs.shape)}")
+    if n == 0 or any(d.shape != (n,) for d in dirs):
+        raise ValueError("directions must be six (N,) tensors with N > 0, "
+                         f"got {[tuple(d.shape) for d in dirs]}")
+    if any(t.shape != (m, n) for t in tgts):
+        raise ValueError(f"targets must be three (M, N) = ({m}, {n}) "
+                         f"tensors, got {[tuple(t.shape) for t in tgts]}")
+    return m, n
+
+
+def plain_fwdbwd_sums(pvecs, dirs, tgts, family="ggx", chunk=8):
+    """The kernel's plain version for M materials: ``(loss_sum (M,),
+    grad_sum (M, 8))``, summed (not averaged) over samples. Runs on any
+    device, ``chunk`` materials at a time so that the intermediates of
+    a large (M, N) batch fit in memory."""
+    m, _ = _check(pvecs, dirs, tgts, family)
+    losses, grads = [], []
+    for k in range(0, m, chunk):
+        pv = pvecs[k:k + chunk].T[:, :, None]       # (8, C, 1)
+        ls, gs = _PLAIN[family](pv, *dirs, *(t[k:k + chunk] for t in tgts))
+        losses.append(ls)
+        grads.append(gs)
+    return torch.cat(losses), torch.cat(grads)
+
+
+def kernel_fwdbwd_sums(pvecs, dirs, tgts, family="ggx"):
+    """Launch the CUDA kernel: ``(loss_sum (M,), grad_sum (M, 8))``.
+    Raises on anything the kernel does not take (CPU or strided
+    tensors included) and on a failed launch."""
+    global LAUNCHES
+    m, n = _check(pvecs, dirs, tgts, family)
+    tensors = (pvecs, *dirs, *tgts)
+    if pvecs.device.type != "cuda":
+        raise ValueError(f"the fused fit kernel needs CUDA tensors, got "
+                         f"{pvecs.device}")
+    if not all(t.is_contiguous() for t in tensors):
+        # a strided view (e.g. targets[..., c]) would be read wrongly:
+        # make the planes contiguous once, outside the step loop
+        raise ValueError("fused fit kernel: every tensor must be contiguous")
+    lib = _lib()
+    nblocks = -(-n // lib.djbt_fused_fit_tile())
+    if nblocks > 2**31 - 1:
+        raise ValueError(f"N = {n} is too large for one launch")
+    device = pvecs.device
+    partials = torch.empty((nblocks, m, 9), dtype=torch.float32,
+                           device=device)
+    out = torch.empty((m, 9), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.djbt_fused_fit(device.index, FAMILIES[family],
+                             *(t.data_ptr() for t in tensors), n, m,
+                             nblocks, partials.data_ptr(), out.data_ptr(),
+                             stream)
+    if err != 0:
+        raise RuntimeError("fused fit kernel launch failed: "
+                           f"{lib.djbt_error_string(err).decode()} ({err})")
+    LAUNCHES += 1
+    return out[:, 0], out[:, 1:]
+
+
+def fwdbwd_sums(pvecs, dirs, tgts, family="ggx"):
+    """Dispatch on the tensors' device: the kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if pvecs.device.type == "cpu":
+        return plain_fwdbwd_sums(pvecs, dirs, tgts, family)
+    return kernel_fwdbwd_sums(pvecs, dirs, tgts, family)
+
+
+class FusedFitLoss(torch.autograd.Function):
+    """Per-material fit loss ``(M,)`` with the kernel's gradient.
+
+    Forward runs the fused step once and keeps its (M, 8) gradient sum
+    divided by ``n_valid``; backward scales it by the incoming
+    per-material gradient, so ``loss.mean().backward()`` yields the
+    gradient of the mean over materials."""
+
+    @staticmethod
+    def forward(ctx, pvecs, ix, iy, iz, ox, oy, oz, tr, tg, tb, n_valid,
+                family):
+        loss_sum, grad_sum = fwdbwd_sums(
+            pvecs.detach(), (ix, iy, iz, ox, oy, oz), (tr, tg, tb), family)
+        ctx.save_for_backward(grad_sum / n_valid)
+        return loss_sum / n_valid
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (grad,) = ctx.saved_tensors
+        return (grad_out[:, None] * grad,) + (None,) * 11
+
+
+def fused_fit_loss(pvecs, ix, iy, iz, ox, oy, oz, tr, tg, tb,
+                   n_valid=None, family="ggx"):
+    """Differentiable per-material loss ``(M,)`` of the fused step."""
+    n = ix.shape[-1] if n_valid is None else n_valid
+    return FusedFitLoss.apply(pvecs, ix, iy, iz, ox, oy, oz, tr, tg, tb,
+                              float(n), family)
+
+
+def ggx_lsq_value_and_grad(pvec, ix, iy, iz, ox, oy, oz, tr, tg, tb,
+                           n_valid: int | None = None, family: str = "ggx"):
+    """Returns (loss, grad(8,)) for the relative-L2 microfacet+Schlick
+    fit of one material (``family``: "ggx" or "beck" — the reference's
+    co-equal fit pair, dj_brdf.h:3133-3184). Inputs are flat f32
+    tensors of any length N; ``n_valid`` (default N) divides the sums."""
+    loss, grad = ggx_lsq_value_and_grad_batched(
+        pvec[None], ix, iy, iz, ox, oy, oz, tr[None], tg[None], tb[None],
+        n_valid=n_valid, family=family)
+    return loss[0], grad[0]
+
+
+def ggx_lsq_value_and_grad_batched(pvecs, ix, iy, iz, ox, oy, oz,
+                                   tr, tg, tb, n_valid: int | None = None,
+                                   mean_over_materials: bool = False,
+                                   family: str = "ggx"):
+    """Batched fused fit step: M materials against a SHARED direction
+    set — the device form of the reference's per-file loop
+    (examples/merl_params.cpp:53-68).
+
+    ``pvecs``: (M, 8) constrained parameter rows. Directions ix..oz:
+    flat (N,) shared across materials; targets tr/tg/tb: (M, N) per
+    material, contiguous. Returns ``(loss (M,), grad (M, 8))``; with
+    ``mean_over_materials`` the grads are additionally divided by M
+    (the gradient of the mean loss, what a joint optimizer wants)."""
+    loss_sum, grad_sum = fwdbwd_sums(pvecs, (ix, iy, iz, ox, oy, oz),
+                                     (tr, tg, tb), family)
+    n = ix.shape[-1] if n_valid is None else n_valid
+    loss, grad = loss_sum / n, grad_sum / n
+    if mean_over_materials:
+        grad = grad / pvecs.shape[0]
+    return loss, grad
