@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path, the fitting step, on one GPU.
+"""Drive the PyTorch/CUDA port's main paths on one GPU: the fitting step,
+and measured MERL data through tabulation to fitted roughness.
 
     python3 chip_smoke.py [--seed 0] [--out results.json]
 
@@ -7,8 +8,8 @@ Phases, one line each; any failure raises and exits non-zero:
 
 0. device check (a CUDA card is required: there is no CPU fallback);
    prints ``nvidia-smi``'s name and power limit; TF32 off.
-1. build the fused fit kernel (``dj_brdf_torch/csrc/fused_fit.cu``)
-   from source into ``build/dj_brdf_torch/``.
+1. build every kernel source (``dj_brdf_torch/csrc/*.cu``) from source
+   into ``build/dj_brdf_torch/``, one ``nvcc`` per source, in parallel.
 2. kernel against its plain PyTorch version on the card, both
    families, at the main path's shapes: one material at N = 2^23 + 1000
    (a ragged tail), and M = 100 materials at N = 1,458,000 (one sample
@@ -18,11 +19,29 @@ Phases, one line each; any failure raises and exits non-zero:
 4. the same with 100 Beckmann materials, 150 steps.
 5. ``fit_lsq`` on one GGX material at N = 2^23, 400 steps.
 6. kernel and plain version timed with CUDA events at those shapes.
+7. the MERL gather kernels against their plain versions, bit for bit:
+   K5 (flat index) and K6 (row/lane index into the padded plane) at
+   2^22 uniform-random indices into one uniform-random 1,458,000-entry
+   plane (``tools/gather_experiments.py``'s shapes), timed; then the
+   gather path itself, K5 and K6 in turn as that script runs them.
+8. MERL targets -> fit: phase 3's 100 GGX+Schlick materials baked into
+   100 MERL tables on the card (``io.synth.bake_merl``); the lookup
+   kernel against its plain version at M = 100 x N = 1,458,000 (phase
+   3's directions), bit for bit, timed; then ``merl_targets`` and
+   ``fit_materials`` (GGX, 1000 steps) with phase 3's recovery bounds.
+9. ``tabulate_merl_batch(tables, 90)`` on the 100 tables on the card,
+   held against the port's CPU path on the first 4; GGX alphas of the
+   materials with alpha <= 0.3 within 6%.
+10. ``python -m dj_brdf_torch.cli.merl_params --device cuda`` in a
+   subprocess on 4 of those tables written as .binary files; its
+   params.txt must agree with phase 9 to the printed 3 decimals.
 
-The launch count of the kernel's wrapper is set to 0 before phase 3
-and must equal the number of fit steps after each fit. The line before
-the last is a JSON summary of the kernels; the last line is the
-device record ``{"ok": true, "device": {...}}``.
+Each main path (phases 3-5, the gather path of 7, 8 and 9) runs with
+the launch counts of the wrappers set to 0 just before it and read
+just after; each kernel must have launched on its path (the fused fit
+exactly once per step). The line before the last is a JSON summary of
+the kernels; the last line is the device record
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -30,9 +49,11 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -62,6 +83,12 @@ STEPS_GGX_BATCH = 1000
 
 SOURCE = "dj_brdf_torch/csrc/fused_fit.cu"
 REPLACES = "dj_brdf_tpu/ops/fused_fit.py:51"
+GATHER_SOURCE = "dj_brdf_torch/csrc/merl_gather.cu"
+N_GATHER = 2 ** 22              # tools/gather_experiments.py:23
+GATHER_ITERS = 20               # its timed() iterations
+RES_TAB = 90                    # the merl_params program's resolution
+N_CLI = 4                       # tables handed to the CLI in phase 10
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg):
@@ -203,6 +230,7 @@ def main(argv=None):
     from dj_brdf_torch.microfacet.ndf import GGX, Beckmann
     from dj_brdf_torch.ops import _build, soa
     from dj_brdf_torch.ops import fused_fit as ff
+    from dj_brdf_torch.ops import merl_gather as mg
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -215,14 +243,18 @@ def main(argv=None):
         f"{torch.version.cuda}; TF32 off for matmul and cuDNN")
     results = {"device": kind, "nvidia_smi": smi, "seed": args.seed}
 
-    # ---- phase 1: build
+    # ---- phase 1: build every kernel source, one nvcc each, in parallel
     t0 = time.perf_counter()
+    _build.build_all(["fused_fit", "merl_gather"])
     ff._lib()
+    mg._lib()
     build_s = time.perf_counter() - t0
-    regs = [ln.strip() for ln in _build.ptxas_report("fused_fit").splitlines()
-            if "registers" in ln or "spill" in ln]
-    log(f"phase 1 build: {build_s:.1f} s (nvcc {_build.BUILD_SECONDS.get('fused_fit', 0.0):.1f} s); "
-        + " | ".join(regs))
+    regs = {name: [ln.strip() for ln in _build.ptxas_report(name).splitlines()
+                   if "registers" in ln or "spill" in ln]
+            for name in ("fused_fit", "merl_gather")}
+    nvcc_s = {k: round(v, 2) for k, v in _build.BUILD_SECONDS.items()}
+    log(f"phase 1 build: {build_s:.1f} s (nvcc {nvcc_s}); "
+        + " | ".join(r for name in regs for r in regs[name]))
     results["build_s"] = build_s
     results["ptxas"] = regs
 
@@ -365,7 +397,6 @@ def main(argv=None):
         "evals_per_s": N_SINGLE / (step_ms_1 * 1e-3),
         "last_loss": float(losses[-1]), "ax_rel_err": ax_err,
         "f0_abs_err": f0_err}
-    main_launches = dict(launches)
 
     # ---- phase 6: kernel and plain version, CUDA events
     timings = {}
@@ -385,21 +416,24 @@ def main(argv=None):
         def plain():
             ff.plain_fwdbwd_sums(pvecs, dirs, tgts, family, chunk=10)
 
-        kernel(), plain()                       # warm up
-        p1 = cuda_ms(plain, 3)
-        k1 = cuda_ms(kernel, 20)
-        k2 = cuda_ms(kernel, 20)
-        p2 = cuda_ms(plain, 3)
-        k_ms, p_ms = min(k1, k2), min(p1, p2)
+        k_ms, p_ms, k_runs, p_runs = timed_pair(kernel, plain, 20, 3)
         nbytes = 24 * n + 12 * n * m
         timings[f"{family}_M{m}_N{n}"] = {
-            "kernel_ms": k_ms, "plain_ms": p_ms, "kernel_runs_ms": [k1, k2],
-            "plain_runs_ms": [p1, p2], "kernel_GB_per_s": nbytes / k_ms / 1e6,
+            "kernel_ms": k_ms, "plain_ms": p_ms, "kernel_runs_ms": k_runs,
+            "plain_runs_ms": p_runs, "kernel_GB_per_s": nbytes / k_ms / 1e6,
             "kernel_evals_per_s": m * n / (k_ms * 1e-3)}
         log(f"phase 6 {family} M={m} N={n}: kernel {k_ms:.4f} ms "
             f"({nbytes / k_ms / 1e6:.1f} GB/s, {m * n / (k_ms * 1e-3):.4g} "
             f"evals/s), plain {p_ms:.3f} ms, plain/kernel {p_ms / k_ms:.1f}x")
     results["timings"] = timings
+
+    gather = phase7_gathers(mg, ff, dgen, results)
+    tables = phase8_merl_fit(mg, ff, alphas, f0s, i, o, launches, results)
+    ab, ag, lookup_launches = phase9_tabulate(mg, ff, tables, alphas, results)
+    phase10_cli(tables, ab, ag, results)
+    main_launches = dict(launches)
+    main_launches["merl_lookup"] = (results["merl_fit"]["launches_lookup"]
+                                    + lookup_launches)
     results["launches"] = main_launches
     if args.out:
         with open(args.out, "w") as fh:
@@ -412,6 +446,21 @@ def main(argv=None):
                 "ms": timings[f"{family}_M{M_MERL}_N{N_MERL}"]["kernel_ms"],
                 "plain_ms": timings[f"{family}_M{M_MERL}_N{N_MERL}"]["plain_ms"]}
                for family in ("ggx", "beck")]
+    lk = results["merl_fit"]["lookup"]
+    kernels.append({"name": "merl_lookup", "route": "cuda",
+                    "source": GATHER_SOURCE,
+                    "replaces": "tools/gather_experiments.py:113",
+                    "launches": main_launches["merl_lookup"],
+                    "max_abs_err": lk["max_abs_err"], "ms": lk["kernel_ms"],
+                    "plain_ms": lk["plain_ms"]})
+    for name, replaces in (("gather_plane", "tools/gather_experiments.py:113"),
+                           ("gather_rowlane", "tools/gather_experiments.py:142")):
+        g = gather[name]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": GATHER_SOURCE, "replaces": replaces,
+                        "launches": g["launches"],
+                        "max_abs_err": g["max_abs_err"], "ms": g["kernel_ms"],
+                        "plain_ms": g["plain_ms"]})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on the main path")
@@ -419,6 +468,253 @@ def main(argv=None):
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def reset_counts(mg, ff):
+    """Every kernel wrapper's launch count to 0."""
+    ff.LAUNCHES = 0
+    for name in mg.LAUNCHES:
+        mg.LAUNCHES[name] = 0
+
+
+def timed_pair(kernel, plain, kernel_reps, plain_reps):
+    """Kernel and plain version in turns (plain, kernel, kernel, plain)
+    after a warm-up; the better of each pair, in ms, and all four runs."""
+    kernel(), plain()
+    p1 = cuda_ms(plain, plain_reps)
+    k1 = cuda_ms(kernel, kernel_reps)
+    k2 = cuda_ms(kernel, kernel_reps)
+    p2 = cuda_ms(plain, plain_reps)
+    return min(k1, k2), min(p1, p2), [k1, k2], [p1, p2]
+
+
+def exact(name, got, want):
+    """Bit-for-bit agreement of a kernel with its plain version."""
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version (max abs err {err:.3e})")
+    return err
+
+
+def phase7_gathers(mg, ff, dgen, results):
+    """K5 and K6 against their plain versions at the shapes of
+    tools/gather_experiments.py, timed; then the gather path."""
+    plane = torch.rand(N_MERL, generator=dgen, device="cuda")
+    idx = torch.randint(0, N_MERL, (N_GATHER,), generator=dgen,
+                        device="cuda", dtype=torch.int32)
+    plane2d = mg.pad_plane(plane)
+    row, lane = mg.row_lane(idx)
+    out = {}
+    nbytes = 8 * N_GATHER + 4 * N_MERL     # index + value per lookup, plane
+    for name, shape, kernel, plain in (
+            ("gather_plane", (N_MERL,),
+             lambda: mg.kernel_gather_plane(plane, idx),
+             lambda: mg.plain_gather_plane(plane, idx)),
+            ("gather_rowlane", tuple(plane2d.shape),
+             lambda: mg.kernel_gather_rowlane(plane2d, row, lane),
+             lambda: mg.plain_gather_rowlane(plane2d, row, lane))):
+        err = exact(name, kernel(), plain())
+        k_ms, p_ms, k_runs, p_runs = timed_pair(kernel, plain, 20, 5)
+        out[name] = {"max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
+                     "kernel_runs_ms": k_runs, "plain_runs_ms": p_runs,
+                     "lookups_per_s": N_GATHER / (k_ms * 1e-3),
+                     "GB_per_s": nbytes / k_ms / 1e6}
+        log(f"phase 7 {name} N={N_GATHER} into {shape}: bit for bit (max "
+            f"abs err {err}); kernel {k_ms:.4f} ms "
+            f"({N_GATHER / (k_ms * 1e-3):.4g} lookups/s, "
+            f"{nbytes / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms")
+
+    # the gather path: K5, then K6, GATHER_ITERS times each
+    reset_counts(mg, ff)
+    for _ in range(GATHER_ITERS):
+        mg.gather_plane(plane, idx)
+    for _ in range(GATHER_ITERS):
+        mg.gather_rowlane(plane2d, row, lane)
+    torch.cuda.synchronize()
+    for name in ("gather_plane", "gather_rowlane"):
+        out[name]["launches"] = mg.LAUNCHES[name]
+        if mg.LAUNCHES[name] != GATHER_ITERS:
+            raise AssertionError(f"phase 7: {name} launched "
+                                 f"{mg.LAUNCHES[name]} times for "
+                                 f"{GATHER_ITERS} gathers")
+    log(f"phase 7 gather path: launches {dict(mg.LAUNCHES)}")
+    results["gathers"] = out
+    return out
+
+
+def phase8_merl_fit(mg, ff, alphas, f0s, i, o, launches, results):
+    """Bake phase 3's materials into MERL tables on the card, check the
+    lookup kernel at full size, then fit on the MERL targets."""
+    from dj_brdf_torch import fresnel
+    from dj_brdf_torch.fit.batch import fit_materials, merl_targets
+    from dj_brdf_torch.io.synth import bake_merl
+    from dj_brdf_torch.microfacet import brdf
+    from dj_brdf_torch.microfacet.ndf import GGX
+    from dj_brdf_torch.microfacet.params import MicrofacetParams
+    from dj_brdf_torch.models import merl as merl_mod
+
+    t0 = time.perf_counter()
+    tables = torch.empty((M_MERL, 3, 90, 90, 180), device="cuda")
+    for k in range(M_MERL):
+        def eval_fn(ii, oo, a=alphas[k], f0=f0s[k]):
+            return brdf.eval(GGX(), fresnel.Schlick(f0=f0),
+                             MicrofacetParams.isotropic(a), ii, oo)
+        tables[k] = bake_merl(eval_fn, device="cuda")
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    below = float((tables[:, 0] < 0).float().mean())
+    log(f"phase 8 bake: {M_MERL} MERL tables on the card in {bake_s:.2f} s "
+        f"({below:.4f} of the bins below the horizon)")
+
+    # the lookup kernel against its plain version at the main path's shape
+    flat = tables.reshape(M_MERL, 3, -1)
+    idx = merl_mod.merl_flat_index(i, o).reshape(-1).contiguous()
+    iz = i[:, 2].contiguous()
+
+    def kernel():
+        return mg.kernel_merl_lookup(flat, idx, merl_mod.SCALES, iz)
+
+    def plain():
+        return mg.plain_merl_lookup(flat, idx, merl_mod.SCALES, iz, chunk=10)
+
+    err = exact(f"merl_lookup M={M_MERL} N={N_MERL}", kernel(), plain())
+    k_ms, p_ms, k_runs, p_runs = timed_pair(kernel, plain, 10, 3)
+    # targets written, indices and cosines read, each table read once
+    nbytes = 12 * M_MERL * N_MERL + 8 * N_MERL + 12 * M_MERL * N_MERL
+    lookup = {"max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
+              "kernel_runs_ms": k_runs, "plain_runs_ms": p_runs,
+              "GB_per_s": nbytes / k_ms / 1e6,
+              "lookups_per_s": M_MERL * N_MERL / (k_ms * 1e-3)}
+    log(f"phase 8 merl_lookup M={M_MERL} N={N_MERL}: bit for bit (max abs "
+        f"err {err}); kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} GB/s, "
+        f"{M_MERL * N_MERL / (k_ms * 1e-3):.4g} lookups/s), plain "
+        f"{p_ms:.3f} ms, plain/kernel {p_ms / k_ms:.1f}x")
+
+    # the main path: MERL targets -> fit_materials
+    torch.cuda.synchronize()
+    reset_counts(mg, ff)
+    with StepTimer() as timer:
+        t0 = time.perf_counter()
+        targets = merl_targets(tables, i, o)
+        params, fres, losses = fit_materials(targets, i, o,
+                                             steps=STEPS_GGX_BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fused, looked = ff.LAUNCHES, mg.LAUNCHES["merl_lookup"]
+    launches["ggx"] += fused
+    step_ms = timer.median_ms()
+    ax_err = float(((params.ax - alphas).abs() / alphas).max())
+    f0_err = float((fres.f0 - f0s).abs().max())
+    log(f"phase 8 merl_targets + fit_materials GGX M={M_MERL} N={N_MERL} "
+        f"{STEPS_GGX_BATCH} steps: {wall:.2f} s, median step {step_ms:.3f} "
+        f"ms, launches fused {fused} lookup {looked}, max loss "
+        f"{float(losses.max()):.3e}, max ax rel err {ax_err:.4f}, max f0 "
+        f"abs err {f0_err:.4f}")
+    if fused != STEPS_GGX_BATCH or looked < 1:
+        raise AssertionError(f"phase 8: {fused} fused fit launches for "
+                             f"{STEPS_GGX_BATCH} steps, {looked} lookups")
+    if not (torch.isfinite(losses).all() and ax_err <= 0.08
+            and f0_err <= 0.08 and float(losses.max()) < 5e-3):
+        raise AssertionError("phase 8: the fit on MERL targets did not "
+                             "recover the materials within ax rtol 0.08, "
+                             "f0 atol 0.08, max loss < 5e-3")
+    results["merl_fit"] = {
+        "bake_s": bake_s, "below_horizon_share": below, "lookup": lookup,
+        "wall_s": wall, "median_step_ms": step_ms,
+        "launches_fused": fused, "launches_lookup": looked,
+        "max_loss": float(losses.max()), "max_ax_rel_err": ax_err,
+        "max_f0_abs_err": f0_err}
+    return tables
+
+
+def phase9_tabulate(mg, ff, tables, alphas, results):
+    """The tabulation pipeline on all tables on the card, held against
+    the port's CPU path on the first 4."""
+    from dj_brdf_torch.fit.batch import tabulate_merl_batch
+
+    walls = []
+    for _ in range(2):          # the first call includes one-off set-up
+        torch.cuda.synchronize()
+        reset_counts(mg, ff)
+        t0 = time.perf_counter()
+        dists, fres_pts, ab, ag = tabulate_merl_batch(tables, RES_TAB)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        looked = mg.LAUNCHES["merl_lookup"]
+        if looked < 1:
+            raise AssertionError("phase 9: the lookup kernel never launched")
+    t0 = time.perf_counter()
+    cd, cf, cab, cag = tabulate_merl_batch(tables[:4].cpu(), RES_TAB)
+    cpu_s = time.perf_counter() - t0
+
+    def close(name, got, want, rtol, atol=0.0):
+        got = got.detach().cpu().double()
+        want = want.detach().double()
+        bad = (got - want).abs() > atol + rtol * want.abs()
+        if bad.any():
+            raise AssertionError(f"phase 9: {name} on the card disagrees with "
+                                 f"the CPU path (max abs err "
+                                 f"{float((got - want).abs().max()):.3e})")
+        return float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+
+    rels = {"ab": close("ab", ab[:4], cab, 1e-4),
+            "ag": close("ag", ag[:4], cag, 1e-4),
+            "p22": close("p22", dists.p22[:4], cd.p22, 1e-4),
+            "fresnel": close("fresnel points", fres_pts[:4], cf, 1e-4, 1e-5)}
+    smooth = alphas <= 0.3
+    ag_err = ((ag - alphas).abs() / alphas)[smooth]
+    log(f"phase 9 tabulate_merl_batch res {RES_TAB}: {M_MERL} materials in "
+        f"{walls[0]:.3f} s (first call), {walls[1]:.3f} s (second); "
+        f"lookups {looked}; CPU path on 4 in {cpu_s:.2f} s, max rel err "
+        f"vs card {rels}; GGX alpha of {int(smooth.sum())} materials with "
+        f"alpha <= 0.3 within {float(ag_err.max()):.4f}")
+    if float(ag_err.max()) > 0.06:
+        raise AssertionError("phase 9: a GGX alpha <= 0.3 came out more "
+                             "than 6% off")
+    results["tabulate"] = {"wall_s_first": walls[0], "wall_s": walls[1],
+                           "launches_lookup": looked, "cpu_4_s": cpu_s,
+                           "max_rel_err_vs_cpu": rels,
+                           "max_ag_rel_err_alpha_le_0.3": float(ag_err.max())}
+    return ab.cpu(), ag.cpu(), looked
+
+
+def phase10_cli(tables, ab, ag, results):
+    """The merl_params program on the card, in a subprocess."""
+    from dj_brdf_torch.io.merl_io import save_merl
+
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for k in range(N_CLI):
+            files.append(os.path.join(tmp, f"synth-{k:03d}.binary"))
+            save_merl(files[-1], tables[k])
+        out = os.path.join(tmp, "params.txt")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dj_brdf_torch.cli.merl_params",
+             "--device", "cuda", "-o", out, *files], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 10: merl_params exited "
+                                 f"{proc.returncode}:\n{proc.stderr}")
+        with open(out) as fh:
+            lines = fh.read().splitlines()
+    rows = [ln.split() for ln in lines[1:]]
+    want = [(f"synth-{k:03d}", float(ab[k]), float(ag[k]))
+            for k in range(N_CLI)]
+    ok = (lines[0] == "# MERL Beckmann GGX" and len(rows) == N_CLI
+          and all(r[0] == w[0] and abs(float(r[1]) - w[1]) <= 5e-4 + 1e-6
+                  and abs(float(r[2]) - w[2]) <= 5e-4 + 1e-6
+                  for r, w in zip(rows, want)))
+    log(f"phase 10 merl_params --device cuda on {N_CLI} files: exit 0 in "
+        f"{wall:.1f} s ({proc.stderr.splitlines()[0]}); params.txt {rows}; "
+        f"phase 9 "
+        f"{[(w[0], round(w[1], 4), round(w[2], 4)) for w in want]}")
+    if not ok:
+        raise AssertionError("phase 10: params.txt disagrees with phase 9")
+    results["cli"] = {"wall_s": wall, "rows": rows}
 
 
 if __name__ == "__main__":

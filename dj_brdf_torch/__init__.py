@@ -3,10 +3,14 @@
 A port of the JAX package ``dj_brdf_tpu`` (itself modelled on the
 dj_brdf C++ toolkit, jdupuy/dj_brdf, ``dj_brdf.h``) to PyTorch, with
 hand-written CUDA kernels for NVIDIA Hopper. The port mirrors the JAX
-package's module tree; this slice holds the fitting step: the core
+package's module tree. Ported so far: the fitting step (the core
 math, Fresnel models, the analytic microfacet distributions'
 evaluation, the SoA fit loss with its hand adjoint, the fused fit
-kernel, and the ``fit_lsq`` / ``fit_materials`` fitters.
+kernel, and the ``fit_lsq`` / ``fit_materials`` fitters), and measured
+data with its tabulation (MERL file I/O, the ``Merl`` model with its
+lookup kernel, synthetic baking, the ``Tabular`` distribution, the
+power-iteration pipeline, moment fits, ``tabulate_merl_batch`` and the
+``merl_params`` program).
 
 Conventions (match the reference, dj_brdf.h:23-26):
   * ``i`` is the direction toward the light, ``o`` toward the viewer.
@@ -21,7 +25,10 @@ from dj_brdf_torch.core import math as vecmath
 from dj_brdf_torch.core import special, spline
 from dj_brdf_torch import fresnel
 from dj_brdf_torch.microfacet.params import MicrofacetParams
-from dj_brdf_torch.microfacet.ndf import GGX, GGXSphericalCaps, Beckmann
+from dj_brdf_torch.microfacet.ndf import GGX, GGXSphericalCaps, Beckmann, Tabular
 from dj_brdf_torch.microfacet import brdf as microfacet
+from dj_brdf_torch.models.lambert import Lambert
+from dj_brdf_torch.models.merl import Merl
+from dj_brdf_torch import io
 
 __version__ = "0.1.0"

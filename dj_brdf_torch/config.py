@@ -26,3 +26,9 @@ def use_x64(enable: bool = True) -> None:
 
 def default_float() -> torch.dtype:
     return torch.get_default_dtype()
+
+
+def round_to(x: float, dtype: torch.dtype) -> float:
+    """A Python float rounded to ``dtype``'s precision: the JAX
+    package's ``ft(x)`` constants (``np.float32(np.pi * 0.5)``)."""
+    return float(torch.tensor(x, dtype=dtype))

@@ -15,9 +15,12 @@ import torch
 
 from dj_brdf_torch.fit.lsq import RawFit
 from dj_brdf_torch.fresnel import Schlick
+from dj_brdf_torch.microfacet.ndf import Tabular
 from dj_brdf_torch.microfacet.params import MicrofacetParams
+from dj_brdf_torch.models.merl import Merl
 
 _PARAMS = ("ax", "ay", "rho", "txn", "tyn")
+_TABULAR = ("p22", "sigma", "cdf", "qf")
 
 
 def _get(obj, name):
@@ -60,3 +63,21 @@ def fresnel_from_jax(fres, device=None) -> Schlick:
 
 def fresnel_to_numpy(fres: Schlick) -> dict:
     return _numpy(fres, ("f0",))
+
+
+def tabular_from_jax(dist, device=None) -> Tabular:
+    """JAX ``Tabular`` (its tables as numpy) -> the port's, keeping the
+    tables' dtype and any leading stack axes."""
+    return Tabular(**{k: torch.as_tensor(np.array(_get(dist, k)),
+                                         device=device) for k in _TABULAR})
+
+
+def tabular_to_numpy(dist: Tabular) -> dict:
+    return _numpy(dist, _TABULAR)
+
+
+def merl_from_jax(merl, device=None) -> Merl:
+    """JAX ``Merl`` (its table as numpy) -> the port's, keeping the
+    table's dtype."""
+    return Merl(table=torch.as_tensor(np.array(_get(merl, "table")),
+                                      device=device))

@@ -37,6 +37,20 @@ def eval1d(points, u, wrap: str = "edge"):
     return p0 + frac * (p1 - p0)
 
 
+def eval1d_stack(points, u):
+    """:func:`eval1d` with ``wrap="edge"`` for a stack of tables:
+    ``points`` (*B, N) looked up along its last axis at ``u`` (*Q) ->
+    (*B, *Q). For a single (N,) table this is ``eval1d``, lerp for
+    lerp."""
+    n = points.shape[-1]
+    t = u * (n - 1)
+    i0 = torch.floor(t).to(torch.int64)
+    frac = t - i0
+    p0 = points[..., _wrap(i0, n, "edge")]
+    p1 = points[..., _wrap(i0 + 1, n, "edge")]
+    return p0 + frac * (p1 - p0)
+
+
 def eval2d(points, u1, u2, wrap1: str = "edge", wrap2: str = "edge"):
     """Bilinear lookup into ``points`` of shape (H, W): u1 indexes the
     fast axis (W entries), u2 the slow axis (H entries) — matching the

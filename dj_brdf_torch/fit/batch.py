@@ -5,11 +5,13 @@ The reference loops over MERL files one at a time
 fitted in one loop: the M materials share one direction set, their
 RawFit leaves carry a leading material axis, and each step is one
 launch of the fused fit kernel over all M materials (its plain version
-on the CPU).
+on the CPU). MERL tables stack on a leading axis in the same way:
+``merl_targets`` looks all M up at the shared directions in one launch
+of the lookup kernel, and ``tabulate_merl_batch`` runs the tabulation
+pipeline on the whole stack at once.
 
 Counterpart of ``dj_brdf_tpu/fit/batch.py``. Sharding the material
-axis over several devices (``mesh``), ``merl_targets`` and
-``tabulate_merl_batch`` are not ported yet.
+axis over several devices (``mesh``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from dj_brdf_torch.core.math import from_spherical
 from dj_brdf_torch.fit import lsq
 from dj_brdf_torch.microfacet import brdf as mf
 from dj_brdf_torch.microfacet.ndf import GGX
+from dj_brdf_torch.models.merl import Merl
 from dj_brdf_torch.ops import soa
 from dj_brdf_torch.ops.fused_fit import fused_fit_loss
 
@@ -38,6 +41,41 @@ def sample_direction_set(n: int, generator: torch.Generator, device=None):
     i = from_spherical(uniform(0.03, 1.5), uniform(0.0, 2 * math.pi))
     o = from_spherical(uniform(0.03, 1.5), uniform(0.0, 2 * math.pi))
     return i, o
+
+
+def merl_targets(tables, i, o):
+    """Evaluate a stack of MERL tables at the direction set:
+    (M, 3, 90, 90, 180) -> (M, N, 3) of f_r cos(theta_i), for
+    :func:`fit_materials`."""
+    return Merl(table=tables).evalp(i, o)
+
+
+def tabulate_merl_batch(tables, res: int = 90, shadow: bool = True,
+                        mesh=None):
+    """Run the full tabulation pipeline (dj_brdf.h:2215-2236) on a
+    *stack* of MERL tables at once, on the tables' device: the batched
+    form of the reference's per-file loop in examples/merl_params.cpp:
+    53-68. Returns ``(Tabular stack, fresnel points stack (M, res, 3),
+    beckmann alphas (M,), ggx alphas (M,))``.
+
+    This is :func:`~dj_brdf_torch.fit.tabular.build_tabular` on a
+    :class:`Merl` holding the whole stack: every stage carries the
+    material axis, each MERL lookup is one kernel launch for all M
+    tables, and the 4-step power iteration is one batched (M, 89, 89)
+    float64 matvec on the same device, like the reference's
+    double-precision ``matrix`` class."""
+    from dj_brdf_torch.fit import moments
+    from dj_brdf_torch.fit.tabular import build_tabular
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "tabulate_merl_batch: sharding over a device mesh is not "
+            "ported yet")
+    dists, fres = build_tabular(Merl(table=torch.as_tensor(tables)), res,
+                                shadow)
+    ab = moments.fit_beckmann_parameters(dists).ax
+    ag = moments.fit_ggx_parameters(dists).ax
+    return dists, fres.points, ab, ag
 
 
 def fit_materials(targets, i, o, steps: int = 300, lr: float = 5e-2,

@@ -48,28 +48,46 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"libdjbt_{name}_{sha}.so"
 
 
+def build_all(names) -> dict[str, Path]:
+    """Compile each ``csrc/<name>.cu`` of ``names`` whose library does
+    not exist yet, one ``nvcc`` process per source, all started
+    together; returns every library's path. The compiler's ``-Xptxas
+    -v`` report (registers, spills) is kept beside each library as
+    ``<library>.ptxas.txt``. Raises if any build fails."""
+    paths = {name: library_path(name) for name in names}
+    todo = [name for name, out in paths.items() if not out.exists()]
+    for name in set(paths) - set(todo):
+        BUILD_SECONDS.setdefault(name, 0.0)
+    if not todo:
+        return paths
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    started = {}
+    for name in todo:
+        tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        started[name] = (tmp, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, t0, proc) in started.items():
+        report, _ = proc.communicate()
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed to build {name}.cu "
+                          f"(exit {proc.returncode}):\n{report}")
+            continue
+        Path(str(paths[name]) + ".ptxas.txt").write_text(report)
+        os.replace(tmp, paths[name])  # atomic: a loader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library exists; returns the
-    library's path. The compiler's ``-Xptxas -v`` report (registers,
-    spills) is kept beside it as ``<library>.ptxas.txt``."""
-    out = library_path(name)
-    if out.exists():
-        BUILD_SECONDS.setdefault(name, 0.0)
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_SECONDS[name] = time.perf_counter() - t0
-    report = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {name}.cu "
-                           f"(exit {proc.returncode}):\n{report}")
-    Path(str(out) + ".ptxas.txt").write_text(report)
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out
+    library's path (see :func:`build_all`)."""
+    return build_all([name])[name]
 
 
 def ptxas_report(name: str) -> str:

@@ -22,6 +22,12 @@ SLICE_MODULES = [
     "dj_brdf_torch.ops.fused_fit", "dj_brdf_torch.fit",
     "dj_brdf_torch.fit.lsq", "dj_brdf_torch.fit.batch",
     "dj_brdf_torch.convert",
+    # slice 2: measured data and tabulation
+    "dj_brdf_torch.io", "dj_brdf_torch.io.merl_io", "dj_brdf_torch.io.synth",
+    "dj_brdf_torch.models", "dj_brdf_torch.models.merl",
+    "dj_brdf_torch.models.lambert", "dj_brdf_torch.ops.merl_gather",
+    "dj_brdf_torch.fit.tabular", "dj_brdf_torch.fit.moments",
+    "dj_brdf_torch.cli", "dj_brdf_torch.cli.merl_params",
 ]
 
 
