@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one GPU: the fitting step,
-and measured MERL data through tabulation to fitted roughness.
+measured MERL data through tabulation to fitted roughness, the autodiff
+cross-check of the fit step, and rendering.
 
     python3 chip_smoke.py [--seed 0] [--out results.json]
 
@@ -35,11 +36,26 @@ Phases, one line each; any failure raises and exits non-zero:
 10. ``python -m dj_brdf_torch.cli.merl_params --device cuda`` in a
    subprocess on 4 of those tables written as .binary files; its
    params.txt must agree with phase 9 to the printed 3 decimals.
+11. K4, ``ggx_lsq_value_and_grad(..., adjoint="ad")``, at N = 2^23 + 1000
+   and three parameter points (raw_init, phase 5's fit, an anisotropic
+   off-centre point): against its plain version (torch.autograd of the
+   eager loss) and against K1, one launch per call, timed;
+   ``family="beck"`` must raise.
+12. the ``entry()`` sphere (res 256) on the card against the port's CPU
+   path, and one gradient of the image mean w.r.t. the params against
+   the CPU gradient; timed and profiled.
+13. the path tracer at res 512, spp 8, 3 bounces on a GGX sphere over a
+   Beckmann floor and over a GGX floor: median frame ms, samples/s,
+   kernels per frame (torch.profiler), finite images, sky pixels equal
+   to the sky, no device-to-host copy in a frame; card vs CPU at res
+   32, spp 4 with the same uniforms; one backward at res 256; and
+   ``MeasuredMaterial.from_merl`` on a phase-8 table through the
+   generic loop at res 128, spp 4.
 
-Each main path (phases 3-5, the gather path of 7, 8 and 9) runs with
-the launch counts of the wrappers set to 0 just before it and read
-just after; each kernel must have launched on its path (the fused fit
-exactly once per step). The line before the last is a JSON summary of
+Each main path (phases 3-5, the gather path of 7, 8, 9, 11 and the
+measured render of 13) runs with the launch counts of the wrappers set
+to 0 just before it and read just after; each kernel must have launched
+on its path (the fused fit exactly once per step, K4 once per call). The line before the last is a JSON summary of
 the kernels; the last line is the device record
 ``{"ok": true, "device": {...}}``.
 """
@@ -83,6 +99,18 @@ STEPS_GGX_BATCH = 1000
 
 SOURCE = "dj_brdf_torch/csrc/fused_fit.cu"
 REPLACES = "dj_brdf_tpu/ops/fused_fit.py:51"
+AD_SOURCE = "dj_brdf_torch/csrc/fused_fit_ad.cu"
+AD_REPLACES = "dj_brdf_tpu/ops/fused_fit.py:63"
+LOSS_RTOL_AD = 1e-5             # K4 and its plain version: exact divides
+# the path tracer: bench.py's scene and sizes (bench.py:467-499)
+PT_RES, PT_SPP, PT_BOUNCES = 512, 8, 3
+PT_FRAMES = 7
+PT_LIGHT = (0.3, 0.4, 0.8)
+PT_LIGHT_RAD = (4.0, 4.0, 4.0)
+PT_SKY = (0.3, 0.35, 0.4)
+# card vs CPU: pixels whose path flips an f32 branch (a grazing hit or a
+# horizon test an ulp from its edge) may differ; at most 1 in 256
+PT_RTOL, PT_ATOL, PT_MAX_FLIPS = 1e-4, 1e-4, 1 / 256
 GATHER_SOURCE = "dj_brdf_torch/csrc/merl_gather.cu"
 N_GATHER = 2 ** 22              # tools/gather_experiments.py:23
 GATHER_ITERS = 20               # its timed() iterations
@@ -245,13 +273,14 @@ def main(argv=None):
 
     # ---- phase 1: build every kernel source, one nvcc each, in parallel
     t0 = time.perf_counter()
-    _build.build_all(["fused_fit", "merl_gather"])
+    _build.build_all(["fused_fit", "merl_gather", "fused_fit_ad"])
     ff._lib()
     mg._lib()
+    ff._lib_ad()
     build_s = time.perf_counter() - t0
     regs = {name: [ln.strip() for ln in _build.ptxas_report(name).splitlines()
                    if "registers" in ln or "spill" in ln]
-            for name in ("fused_fit", "merl_gather")}
+            for name in ("fused_fit", "merl_gather", "fused_fit_ad")}
     nvcc_s = {k: round(v, 2) for k, v in _build.BUILD_SECONDS.items()}
     log(f"phase 1 build: {build_s:.1f} s (nvcc {nvcc_s}); "
         + " | ".join(r for name in regs for r in regs[name]))
@@ -397,6 +426,8 @@ def main(argv=None):
         "evals_per_s": N_SINGLE / (step_ms_1 * 1e-3),
         "last_loss": float(losses[-1]), "ax_rel_err": ax_err,
         "f0_abs_err": f0_err}
+    fitted_pvec = torch.stack([params.ax, params.ay, params.rho, params.txn,
+                               params.tyn, *fres.f0]).reshape(8).detach()
 
     # ---- phase 6: kernel and plain version, CUDA events
     timings = {}
@@ -431,9 +462,13 @@ def main(argv=None):
     tables = phase8_merl_fit(mg, ff, alphas, f0s, i, o, launches, results)
     ab, ag, lookup_launches = phase9_tabulate(mg, ff, tables, alphas, results)
     phase10_cli(tables, ab, ag, results)
+    k4 = phase11_k4(mg, ff, dgen, fitted_pvec, results)
+    phase12_entry(results)
+    measured_lookups = phase13_pathtrace(mg, ff, tables, results)
     main_launches = dict(launches)
     main_launches["merl_lookup"] = (results["merl_fit"]["launches_lookup"]
-                                    + lookup_launches)
+                                    + lookup_launches + measured_lookups)
+    main_launches["fused_fit_ad"] = k4["launches"]
     results["launches"] = main_launches
     if args.out:
         with open(args.out, "w") as fh:
@@ -446,6 +481,11 @@ def main(argv=None):
                 "ms": timings[f"{family}_M{M_MERL}_N{N_MERL}"]["kernel_ms"],
                 "plain_ms": timings[f"{family}_M{M_MERL}_N{N_MERL}"]["plain_ms"]}
                for family in ("ggx", "beck")]
+    kernels.append({"name": "fused_fit_ad", "route": "cuda",
+                    "source": AD_SOURCE, "replaces": AD_REPLACES,
+                    "launches": main_launches["fused_fit_ad"],
+                    "max_abs_err": k4["max_abs_err"], "ms": k4["kernel_ms"],
+                    "plain_ms": k4["plain_ms"]})
     lk = results["merl_fit"]["lookup"]
     kernels.append({"name": "merl_lookup", "route": "cuda",
                     "source": GATHER_SOURCE,
@@ -473,6 +513,7 @@ def main(argv=None):
 def reset_counts(mg, ff):
     """Every kernel wrapper's launch count to 0."""
     ff.LAUNCHES = 0
+    ff.LAUNCHES_AD = 0
     for name in mg.LAUNCHES:
         mg.LAUNCHES[name] = 0
 
@@ -715,6 +756,317 @@ def phase10_cli(tables, ab, ag, results):
     if not ok:
         raise AssertionError("phase 10: params.txt disagrees with phase 9")
     results["cli"] = {"wall_s": wall, "rows": rows}
+
+
+def phase11_k4(mg, ff, dgen, fitted_pvec, results):
+    """K4, the autodiff cross-check, against its plain version and K1."""
+    from dj_brdf_torch.fit.batch import sample_direction_set
+    from dj_brdf_torch.fit.lsq import raw_init
+    from dj_brdf_torch.ops import soa
+
+    i, o = sample_direction_set(N_RAGGED, dgen, "cuda")
+    dirs = tuple(c.contiguous() for c in soa.split_dirs(i, o))
+    # targets of another material than phase 5's: at phase 5's fitted
+    # point its own targets have a loss of ~1e-10 and gradients at f32
+    # rounding level, where no relative bound means anything
+    truth = torch.tensor([0.2, 0.3, -0.15, -0.03, 0.02, 0.85, 0.55, 0.35],
+                         device="cuda")
+    tgts = tuple(t.contiguous() for t in soa.ggx_evalp_soa(truth, *dirs))
+    points = {"raw_init": soa.raw_to_pvec(raw_init(device="cuda")),
+              "fit_lsq": fitted_pvec.to("cuda").contiguous(),
+              "aniso_offcentre": torch.tensor(
+                  [0.35, 0.18, 0.25, 0.06, -0.04, 0.8, 0.5, 0.2],
+                  device="cuda")}
+    try:
+        ff.ggx_lsq_value_and_grad(points["raw_init"], *dirs, *tgts,
+                                  family="beck", adjoint="ad")
+    except ValueError as exc:
+        log(f"phase 11 family='beck' with adjoint='ad' raises: {exc}")
+    else:
+        raise AssertionError("phase 11: adjoint='ad' accepted family='beck'")
+
+    # the main path: the adjoint="ad" entry point, once per point
+    torch.cuda.synchronize()
+    reset_counts(mg, ff)
+    out = {}
+    for name, pv in points.items():
+        before = ff.LAUNCHES_AD
+        out[name] = ff.ggx_lsq_value_and_grad(pv, *dirs, *tgts,
+                                              adjoint="ad")
+        if ff.LAUNCHES_AD != before + 1:
+            raise AssertionError(f"phase 11: K4 launched "
+                                 f"{ff.LAUNCHES_AD - before} times in one "
+                                 "call")
+    torch.cuda.synchronize()
+    launches = ff.LAUNCHES_AD
+
+    err, rows = 0.0, {}
+    for name, pv in points.items():
+        lk, gk = (x.double() for x in out[name])
+        lp, gp = (x.double() / N_RAGGED for x in ff.plain_ad_sums(
+            pv, dirs, tgts))
+        _, gh = ff.ggx_lsq_value_and_grad(pv, *dirs, *tgts, adjoint="hand")
+        gh = gh.double()
+        if not (torch.isfinite(lk) and torch.isfinite(gk).all()):
+            raise AssertionError(f"phase 11 {name}: K4 output not finite")
+        loss_rel = float((lk - lp).abs() / lp.abs())
+        ok_plain = bool(((gk - gp).abs() <= GRAD_ATOL_REL * gp.abs().max()
+                         + GRAD_RTOL * gp.abs()).all())
+        ok_k1 = bool(((gk - gh).abs() <= GRAD_ATOL_REL * gh.abs().max()
+                      + GRAD_RTOL * gh.abs()).all())
+        err = max(err, float((lk - lp).abs()), float((gk - gp).abs().max()))
+        rows[name] = {"loss": float(lk), "loss_rel_err": loss_rel,
+                      "grad_max_abs_err_vs_plain": float(
+                          (gk - gp).abs().max()),
+                      "grad_max_abs_err_vs_k1": float((gk - gh).abs().max())}
+        log(f"phase 11 K4 {name} N={N_RAGGED}: loss {float(lk):.6e} (rel "
+            f"err vs plain {loss_rel:.3e}), max |grad err| vs plain "
+            f"{rows[name]['grad_max_abs_err_vs_plain']:.3e}, vs K1 "
+            f"{rows[name]['grad_max_abs_err_vs_k1']:.3e} -> "
+            f"{'ok' if loss_rel <= LOSS_RTOL_AD and ok_plain and ok_k1 else 'MISMATCH'}")
+        if not (loss_rel <= LOSS_RTOL_AD and ok_plain and ok_k1):
+            raise AssertionError(f"phase 11 {name}: K4 disagrees (loss rel "
+                                 f"{loss_rel:.3e}, grad vs plain {ok_plain}, "
+                                 f"grad vs K1 {ok_k1})")
+
+    pv = points["aniso_offcentre"]
+    k_ms, p_ms, k_runs, p_runs = timed_pair(
+        lambda: ff.kernel_ad_sums(pv, dirs, tgts),
+        lambda: ff.plain_ad_sums(pv, dirs, tgts), 20, 3)
+    log(f"phase 11 K4 N={N_RAGGED}: launches {launches} for "
+        f"{len(points)} calls; kernel {k_ms:.4f} ms "
+        f"({N_RAGGED / (k_ms * 1e-3):.4g} evals/s), plain {p_ms:.3f} ms, "
+        f"plain/kernel {p_ms / k_ms:.1f}x")
+    k4 = {"launches": launches, "max_abs_err": err, "kernel_ms": k_ms,
+          "plain_ms": p_ms, "kernel_runs_ms": k_runs, "plain_runs_ms": p_runs,
+          "points": rows}
+    results["k4"] = k4
+    return k4
+
+
+def profile_frame(fn):
+    """One call of ``fn`` under torch.profiler: kernels launched, device
+    busy ms (their summed durations), the largest kernel by total time,
+    and device-to-host copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in device if not e.name.startswith("Memcpy")
+               and not e.name.startswith("Memset")]
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no CUDA kernel")
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = max(by_name, key=by_name.get)
+    return {"kernels": len(kernels),
+            "device_busy_ms": sum(by_name.values()) / 1e3,
+            "largest_kernel": top[:80],
+            "largest_kernel_ms": by_name[top] / 1e3,
+            "dtoh_copies": sum("DtoH" in e.name for e in device)}
+
+
+def phase12_entry(results):
+    """The flagship sphere render on the card against the CPU path."""
+    from dj_brdf_torch.entry import entry
+    from dj_brdf_torch.microfacet.params import MicrofacetParams
+
+    def leaves(params, device):
+        return MicrofacetParams(**{k: getattr(params, k).detach().to(device)
+                                   .requires_grad_(True)
+                                   for k in ("ax", "ay", "rho", "txn",
+                                             "tyn")})
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        fwd, args = entry(device)
+        params = leaves(args[0], device)
+        img = fwd(params, *args[1:])
+        img.mean().backward()
+        out[device] = (img.detach().cpu().double(), torch.stack(
+            [getattr(params, k).grad for k in ("ax", "ay", "rho", "txn",
+                                               "tyn")]).cpu().double())
+    (img, grad), (img_c, grad_c) = out["cuda"], out["cpu"]
+    visible = img_c.abs().sum(-1) > 0
+    scale = float(img_c.abs().max())
+    bad_px = ((img - img_c).abs() > 1e-5 * img_c.abs() + 1e-7 * scale)
+    rel = float(((img - img_c).abs() / img_c.abs().clamp(min=1e-30))[
+        visible].max())
+    grad_ok = bool(((grad - grad_c).abs() <= 1e-4 * grad_c.abs()
+                    + 1e-6 * grad_c.abs().max()).all())
+    fwd, args = entry("cuda")
+    with torch.no_grad():
+        fwd(*args)
+        ms = cuda_ms(lambda: fwd(*args), 20)
+        prof = profile_frame(lambda: fwd(*args))
+    log(f"phase 12 entry() res 256: {int(visible.sum())} visible pixels, "
+        f"max rel err vs CPU {rel:.3e}, {int(bad_px.sum())} pixels beyond "
+        f"rtol 1e-5 (+1e-7 of the max); grad of the mean w.r.t. (ax, ay, "
+        f"rho, txn, tyn) {grad.tolist()} vs CPU {grad_c.tolist()} -> "
+        f"{'ok' if grad_ok and not bad_px.any() else 'MISMATCH'}; "
+        f"forward {ms:.4f} ms, {prof['kernels']} kernels, device busy "
+        f"{prof['device_busy_ms']:.4f} ms, largest {prof['largest_kernel']} "
+        f"{prof['largest_kernel_ms']:.4f} ms")
+    if not (torch.isfinite(grad).all() and grad_ok and not bad_px.any()):
+        raise AssertionError("phase 12: the entry() render or its gradient "
+                             "on the card disagrees with the CPU path")
+    results["entry"] = {"max_rel_err": rel, "grad": grad.tolist(),
+                        "grad_cpu": grad_c.tolist(), "forward_ms": ms,
+                        "profile": prof}
+
+
+def pt_scene(floor, device, f0=None, a1=None):
+    """bench.py's path-tracer scene: a GGX+Schlick sphere over a
+    Beckmann or GGX floor."""
+    from dj_brdf_torch import fresnel
+    from dj_brdf_torch.microfacet.ndf import GGX, Beckmann
+    from dj_brdf_torch.microfacet.params import MicrofacetParams
+    from dj_brdf_torch.render.materials import MicrofacetMaterial
+
+    def vec(*x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+
+    f0 = vec(0.9, 0.6, 0.3) if f0 is None else f0
+    a1 = vec(0.3)[0] if a1 is None else a1
+    sphere = MicrofacetMaterial(GGX(), fresnel.Schlick(f0=f0),
+                                MicrofacetParams.elliptic(a1, vec(0.15)[0],
+                                                          vec(0.7)[0]))
+    floor_mat = MicrofacetMaterial(
+        Beckmann() if floor == "beck" else GGX(),
+        fresnel.Schlick(f0=vec(0.3, 0.3, 0.3)),
+        MicrofacetParams.isotropic(vec(0.5)[0]))
+    return sphere, floor_mat
+
+
+def phase13_pathtrace(mg, ff, tables, results):
+    """The path tracer at bench.py's sizes, card vs CPU parity, a
+    backward, and a measured material through the generic loop."""
+    from dj_brdf_torch.render import pathtrace
+    from dj_brdf_torch.render.materials import MeasuredMaterial
+
+    sky = torch.tensor(PT_SKY, device="cuda")
+    out = {}
+    for floor in ("beck", "ggx"):
+        sphere, floor_mat = pt_scene(floor, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def frame():
+            return pathtrace.render(sphere, floor_mat, PT_LIGHT, PT_LIGHT_RAD,
+                                    PT_SKY, res=PT_RES, spp=PT_SPP,
+                                    max_bounces=PT_BOUNCES, generator=gen)
+
+        with torch.no_grad():
+            img = frame()                              # warm-up
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(PT_FRAMES):
+                t0 = time.perf_counter()
+                img = frame()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            prof = profile_frame(frame)
+        ms = statistics.median(walls)
+        rays = PT_RES * PT_RES * PT_SPP
+        corners = torch.stack([img[0, 0], img[0, -1]])
+        sky_ok = bool(((corners - sky).abs() <= 1e-6).all())
+        finite = bool(torch.isfinite(img).all())
+        log(f"phase 13 pathtrace GGX sphere / {floor} floor res {PT_RES} spp "
+            f"{PT_SPP} {PT_BOUNCES} bounces: median frame {ms:.3f} ms over "
+            f"{PT_FRAMES} ({[round(w, 3) for w in walls]}), "
+            f"{rays / (ms * 1e-3):.4g} samples/s, {prof['kernels']} kernels "
+            f"per frame, device busy {prof['device_busy_ms']:.3f} ms, "
+            f"largest {prof['largest_kernel']} {prof['largest_kernel_ms']:.3f}"
+            f" ms, DtoH copies {prof['dtoh_copies']}; mean "
+            f"{float(img.mean()):.5f}, finite {finite}, sky corners {sky_ok}")
+        if not (finite and sky_ok and img.device.type == "cuda"
+                and prof["dtoh_copies"] == 0 and float(img.mean()) > 0.05):
+            raise AssertionError(f"phase 13 {floor}: the frame is not finite, "
+                                 "its sky pixels differ from the sky, or it "
+                                 "copied data to the host")
+
+        # the card against the CPU path, same uniforms
+        res, spp = 32, 4
+        u = torch.rand((PT_BOUNCES, res * res * spp, 2),
+                       generator=torch.Generator().manual_seed(1))
+        small = {}
+        for device in ("cuda", "cpu"):
+            s_mat, f_mat = pt_scene(floor, device)
+            small[device] = pathtrace.render(
+                s_mat, f_mat, PT_LIGHT, PT_LIGHT_RAD, PT_SKY, res=res,
+                spp=spp, max_bounces=PT_BOUNCES, u=u.to(device)).cpu()
+        diff = (small["cuda"] - small["cpu"]).abs()
+        flips = int((diff > PT_ATOL + PT_RTOL * small["cpu"].abs()).any(-1)
+                    .sum())
+        log(f"phase 13 {floor} res {res} spp {spp}: card vs CPU max abs err "
+            f"{float(diff.max()):.3e}, {flips} of {res * res} pixels beyond "
+            f"rtol {PT_RTOL} + atol {PT_ATOL} (allowed "
+            f"{int(PT_MAX_FLIPS * res * res)})")
+        if flips > PT_MAX_FLIPS * res * res:
+            raise AssertionError(f"phase 13 {floor}: the card's render "
+                                 "disagrees with the CPU path")
+        out[floor] = {"median_frame_ms": ms, "frames_ms": walls,
+                      "samples_per_s": rays / (ms * 1e-3), "profile": prof,
+                      "mean": float(img.mean()),
+                      "cpu_parity_max_abs_err": float(diff.max()),
+                      "cpu_parity_flips": flips}
+
+    # one backward of the image mean w.r.t. the sphere's params, res 256
+    f0 = torch.tensor([0.9, 0.6, 0.3], device="cuda", requires_grad=True)
+    a1 = torch.tensor(0.3, device="cuda", requires_grad=True)
+    sphere, floor_mat = pt_scene("beck", "cuda", f0=f0, a1=a1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img = pathtrace.render(sphere, floor_mat, PT_LIGHT, PT_LIGHT_RAD, PT_SKY,
+                           res=256, spp=PT_SPP, max_bounces=PT_BOUNCES,
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(2))
+    img.mean().backward()
+    torch.cuda.synchronize()
+    bwd_s = time.perf_counter() - t0
+    grads = torch.cat([f0.grad, a1.grad[None]])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"phase 13 backward res 256 spp {PT_SPP}: d mean / d (f0, alpha1) "
+        f"{grads.tolist()} in {bwd_s:.3f} s (forward + backward), peak "
+        f"{peak_gb:.2f} GB")
+    if not (torch.isfinite(grads).all() and grads.abs().max() > 0):
+        raise AssertionError("phase 13: the render gradient is not finite "
+                             "or all zero")
+
+    # a measured material through the generic loop
+    torch.cuda.synchronize()
+    reset_counts(mg, ff)
+    t0 = time.perf_counter()
+    measured = MeasuredMaterial.from_merl(tables[0])
+    _, floor_mat = pt_scene("ggx", "cuda")
+    with torch.no_grad():
+        img = pathtrace.render(measured, floor_mat, PT_LIGHT, PT_LIGHT_RAD,
+                               PT_SKY, res=128, spp=4,
+                               max_bounces=PT_BOUNCES,
+                               generator=torch.Generator(device="cuda")
+                               .manual_seed(3))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    looked = mg.LAUNCHES["merl_lookup"]
+    log(f"phase 13 MeasuredMaterial.from_merl (phase 8 table 0, proxy alpha "
+        f"{float(measured.proxy_params.ax):.4f}) through the generic loop "
+        f"res 128 spp 4: {wall:.3f} s with the proxy fit, lookups {looked}, "
+        f"mean {float(img.mean()):.5f}, finite "
+        f"{bool(torch.isfinite(img).all())}")
+    if not (torch.isfinite(img).all() and looked > 0):
+        raise AssertionError("phase 13: the measured-material render is not "
+                             "finite or never ran the lookup kernel")
+    out["backward"] = {"grads": grads.tolist(), "wall_s": bwd_s,
+                       "peak_gb": peak_gb}
+    out["measured"] = {"wall_s": wall, "lookups": looked,
+                       "proxy_alpha": float(measured.proxy_params.ax)}
+    results["pathtrace"] = out
+    return looked
 
 
 if __name__ == "__main__":

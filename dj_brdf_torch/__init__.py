@@ -10,7 +10,11 @@ kernel, and the ``fit_lsq`` / ``fit_materials`` fitters), and measured
 data with its tabulation (MERL file I/O, the ``Merl`` model with its
 lookup kernel, synthetic baking, the ``Tabular`` distribution, the
 power-iteration pipeline, moment fits, ``tabulate_merl_batch`` and the
-``merl_params`` program).
+``merl_params`` program), and the renderer's delta-light path (VNDF
+sampling, the fused SoA samplers, ``render_sphere`` and the ``entry()``
+forward, the renderer materials and ``render.pathtrace.render``), with
+the autodiff cross-check of the fit step (``adjoint="ad"``) and its
+kernel.
 
 Conventions (match the reference, dj_brdf.h:23-26):
   * ``i`` is the direction toward the light, ``o`` toward the viewer.
@@ -29,6 +33,8 @@ from dj_brdf_torch.microfacet.ndf import GGX, GGXSphericalCaps, Beckmann, Tabula
 from dj_brdf_torch.microfacet import brdf as microfacet
 from dj_brdf_torch.models.lambert import Lambert
 from dj_brdf_torch.models.merl import Merl
+from dj_brdf_torch.render.materials import (
+    MicrofacetMaterial, MeasuredMaterial, CosineMaterial, ConductorWrap)
 from dj_brdf_torch import io
 
 __version__ = "0.1.0"

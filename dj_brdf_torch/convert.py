@@ -1,23 +1,32 @@
-"""Carry fit parameters between the JAX package and this port.
+"""Carry fit parameters and materials between the JAX package and this
+port.
 
 The JAX side is given as numpy arrays (``np.asarray`` of its leaves),
 either a mapping of field name to array or any object with those
 fields as attributes (a NamedTuple, a frozen dataclass). Leading batch
-axes are kept. Nothing here imports JAX.
+axes are kept. :func:`material_from_jax` takes a JAX renderer material
+itself and rebuilds it, field by field, from the port's classes of the
+same names. Nothing here imports JAX.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from dj_brdf_torch import fresnel
 from dj_brdf_torch.fit.lsq import RawFit
 from dj_brdf_torch.fresnel import Schlick
+from dj_brdf_torch.microfacet import ndf
 from dj_brdf_torch.microfacet.ndf import Tabular
 from dj_brdf_torch.microfacet.params import MicrofacetParams
+from dj_brdf_torch.models.lambert import Lambert
 from dj_brdf_torch.models.merl import Merl
+from dj_brdf_torch.render import materials
 
 _PARAMS = ("ax", "ay", "rho", "txn", "tyn")
 _TABULAR = ("p22", "sigma", "cdf", "qf")
@@ -81,3 +90,36 @@ def merl_from_jax(merl, device=None) -> Merl:
     table's dtype."""
     return Merl(table=torch.as_tensor(np.array(_get(merl, "table")),
                                       device=device))
+
+
+#: the port's classes a JAX material may be built from, by class name
+_MATERIAL_CLASSES = {cls.__name__: cls for cls in (
+    materials.MicrofacetMaterial, materials.MeasuredMaterial,
+    materials.CosineMaterial, materials.ConductorWrap, MicrofacetParams,
+    ndf.GGX, ndf.GGXSphericalCaps, ndf.Beckmann, ndf.Tabular, Lambert, Merl,
+    fresnel.Ideal, fresnel.Schlick, fresnel.Unpolarized, fresnel.SGDFresnel,
+    fresnel.Conductor, fresnel.SplineFresnel)}
+
+
+def material_from_jax(obj, device=None):
+    """A JAX renderer material (``MicrofacetMaterial``,
+    ``MeasuredMaterial``, ``CosineMaterial``, ``ConductorWrap``) and
+    everything inside it (distributions, Fresnel models, parameters,
+    ``Lambert``/``Merl`` models) -> the port's object of the same class
+    name. Array leaves become tensors on ``device`` with their dtype;
+    static fields are copied. Raises ``TypeError`` for a class the port
+    does not have."""
+    name = type(obj).__name__
+    cls = _MATERIAL_CLASSES.get(name)
+    if cls is None:
+        raise TypeError(f"no counterpart in the port for {name}")
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        value = getattr(obj, f.name)
+        if f.metadata.get("static", False):
+            kwargs[f.name] = value
+        elif type(value).__name__ in _MATERIAL_CLASSES:
+            kwargs[f.name] = material_from_jax(value, device)
+        else:
+            kwargs[f.name] = torch.as_tensor(np.array(value), device=device)
+    return cls(**kwargs)

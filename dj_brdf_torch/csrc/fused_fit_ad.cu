@@ -1,0 +1,400 @@
+// The autodiff cross-check of the fit step for Hopper (sm_90a): the
+// relative-L2 loss of the GGX + Schlick microfacet BRDF against one
+// material's targets, summed over N direction pairs, with its gradient
+// w.r.t. the 8 constrained parameters [ax, ay, rho, txn, tyn, f0r, f0g, f0b]
+// derived by forward-mode automatic differentiation.
+//
+// Replaces dj_brdf_tpu/ops/fused_fit.py::_kernel_ad, the Pallas body behind
+// ggx_lsq_value_and_grad(..., adjoint="ad"), which takes jax.vjp of
+// dj_brdf_tpu/ops/soa.py::ggx_lsq_loss_soa inside the kernel. Its purpose is
+// to derive the gradient a second way, independently of the hand-written
+// adjoint of csrc/fused_fit.cu (K1), so it shares no code with it. Every
+// value is a Dual: a float and its 8 tangents d/d pvec[k]. The 8 parameters
+// are seeded with unit tangents, the samples and targets are constants, and
+// the loss is written once over Dual, following soa.py::ggx_evalp_soa
+// (:22-108) and ggx_lsq_loss_soa (:213-221) line by line: the same 1e-24
+// floor under sqrt(1 - rho^2) and the half-vector rsqrt, the same 1e-12
+// gates, valid_h = hz > 1e-4, the clip of cos(theta_d). Divides are exact
+// (no rcp.approx, unlike K1): the JAX kernel calls the loss without recip.
+// Selects and gates test the value only, so a gated sample adds exactly 0 to
+// every tangent. The plain version this kernel is held against is
+// torch.autograd of dj_brdf_torch/ops/soa.py::ggx_lsq_loss_soa.
+//
+// Where forward and reverse mode may differ: at an exact tie of a max or a
+// clip, JAX's VJP splits the cotangent between the two branches, while a
+// forward-mode select takes one. The only such ties here are rho = +-1 (the
+// 1e-24 floor) and samples exactly on a gate; random directions miss them.
+//
+// What bounds it on an H100: per sample, 36 B read (six direction and
+// three target components) against roughly 9 x 120 = ~1,100 f32
+// flop-equivalents (each Dual operation does the value and 8 tangents,
+// and a Dual divide costs 9 exact divides). At 67 TFLOP/s of f32 that is
+// ~30 flop/B above the 3.35 TB/s balance: the kernel is compute-bound,
+// and registers are the scarce resource (a Dual is 9 floats; the 13
+// per-material Duals alone hold 117). A simple design that is right comes
+// first: each thread walks kItems samples of its CTA's tile one after the
+// other (only one sample's Duals live at a time), accumulates the 9 terms
+// (loss + 8 tangents) in registers, and the CTA reduces them by warp
+// shuffles and shared memory into partials (nblocks, 9). A second kernel
+// sums the partials in a fixed order in double, so the result is the same
+// from run to run (no float atomics). The ragged tail is masked in-kernel,
+// not padded. -Xptxas -v at build time reports registers and spills (see
+// ops/_build.py): spills are expected and accepted here.
+//
+// The kernel allocates nothing and does not synchronise: the caller passes
+// the partials and output buffers and PyTorch's current stream, and each
+// launch's cudaGetLastError() is returned to it.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBlock = 256;
+constexpr int kItems = 4;
+constexpr int kTile = kBlock * kItems;
+constexpr int kWarps = kBlock / 32;
+constexpr int kP = 8;       // tangents: one per constrained parameter
+constexpr int kTerms = 9;   // loss + 8 gradient components
+
+constexpr float kEps = 1e-2f;
+constexpr float kInvPi = 0.318309886183790671538f;
+
+// A value with its derivatives w.r.t. the 8 parameters.
+struct Dual {
+  float v;
+  float d[kP];
+};
+
+__device__ __forceinline__ Dual constant(float v) {
+  Dual r;
+  r.v = v;
+#pragma unroll
+  for (int k = 0; k < kP; ++k) r.d[k] = 0.0f;
+  return r;
+}
+
+__device__ __forceinline__ Dual seed(float v, int slot) {
+  Dual r = constant(v);
+  r.d[slot] = 1.0f;
+  return r;
+}
+
+__device__ __forceinline__ Dual operator+(const Dual& a, const Dual& b) {
+  Dual r;
+  r.v = a.v + b.v;
+#pragma unroll
+  for (int k = 0; k < kP; ++k) r.d[k] = a.d[k] + b.d[k];
+  return r;
+}
+
+__device__ __forceinline__ Dual operator+(const Dual& a, float b) {
+  Dual r = a;
+  r.v = a.v + b;
+  return r;
+}
+
+__device__ __forceinline__ Dual operator+(float a, const Dual& b) {
+  return b + a;
+}
+
+__device__ __forceinline__ Dual operator-(const Dual& a) {
+  Dual r;
+  r.v = -a.v;
+#pragma unroll
+  for (int k = 0; k < kP; ++k) r.d[k] = -a.d[k];
+  return r;
+}
+
+__device__ __forceinline__ Dual operator-(const Dual& a, const Dual& b) {
+  Dual r;
+  r.v = a.v - b.v;
+#pragma unroll
+  for (int k = 0; k < kP; ++k) r.d[k] = a.d[k] - b.d[k];
+  return r;
+}
+
+__device__ __forceinline__ Dual operator-(const Dual& a, float b) {
+  Dual r = a;
+  r.v = a.v - b;
+  return r;
+}
+
+__device__ __forceinline__ Dual operator-(float a, const Dual& b) {
+  Dual r;
+  r.v = a - b.v;
+#pragma unroll
+  for (int k = 0; k < kP; ++k) r.d[k] = -b.d[k];
+  return r;
+}
+
+__device__ __forceinline__ Dual operator*(const Dual& a, const Dual& b) {
+  Dual r;
+  r.v = a.v * b.v;
+#pragma unroll
+  for (int k = 0; k < kP; ++k) r.d[k] = a.d[k] * b.v + a.v * b.d[k];
+  return r;
+}
+
+__device__ __forceinline__ Dual operator*(const Dual& a, float b) {
+  Dual r;
+  r.v = a.v * b;
+#pragma unroll
+  for (int k = 0; k < kP; ++k) r.d[k] = a.d[k] * b;
+  return r;
+}
+
+__device__ __forceinline__ Dual operator*(float a, const Dual& b) {
+  return b * a;
+}
+
+// a / b with exact divides: (a' - (a/b) b') / b
+__device__ __forceinline__ Dual operator/(const Dual& a, const Dual& b) {
+  Dual r;
+  r.v = a.v / b.v;
+#pragma unroll
+  for (int k = 0; k < kP; ++k) r.d[k] = (a.d[k] - r.v * b.d[k]) / b.v;
+  return r;
+}
+
+__device__ __forceinline__ Dual operator/(const Dual& a, float b) {
+  Dual r;
+  r.v = a.v / b;
+#pragma unroll
+  for (int k = 0; k < kP; ++k) r.d[k] = a.d[k] / b;
+  return r;
+}
+
+__device__ __forceinline__ Dual operator/(float a, const Dual& b) {
+  Dual r;
+  r.v = a / b.v;
+#pragma unroll
+  for (int k = 0; k < kP; ++k) r.d[k] = -r.v * b.d[k] / b.v;
+  return r;
+}
+
+__device__ __forceinline__ Dual dsqrt(const Dual& x) {
+  Dual r;
+  r.v = sqrtf(x.v);
+#pragma unroll
+  for (int k = 0; k < kP; ++k) r.d[k] = x.d[k] / (2.0f * r.v);
+  return r;
+}
+
+// max(x, c) for a constant c: the select takes x's tangents above c
+__device__ __forceinline__ Dual dmax(const Dual& x, float c) {
+  return x.v > c ? x : constant(c);
+}
+
+__device__ __forceinline__ Dual select(bool cond, const Dual& a,
+                                       const Dual& b) {
+  return cond ? a : b;
+}
+
+// The per-material Duals of ggx_evalp_soa, computed once per thread.
+struct Material {
+  Dual ax, ay, rho, txn, tyn, f0r, f0g, f0b;
+  Dual s, inv_ax, inv_axays, ay_rho, ay_s;
+};
+
+__device__ __forceinline__ Material load_material(const float* __restrict__ p) {
+  Material m;
+  m.ax = seed(__ldg(p + 0), 0);
+  m.ay = seed(__ldg(p + 1), 1);
+  m.rho = seed(__ldg(p + 2), 2);
+  m.txn = seed(__ldg(p + 3), 3);
+  m.tyn = seed(__ldg(p + 4), 4);
+  m.f0r = seed(__ldg(p + 5), 5);
+  m.f0g = seed(__ldg(p + 6), 6);
+  m.f0b = seed(__ldg(p + 7), 7);
+  m.s = dsqrt(dmax(1.0f - m.rho * m.rho, 1e-24f));
+  m.inv_ax = 1.0f / m.ax;
+  m.inv_axays = 1.0f / (m.ax * m.ay * m.s);
+  m.ay_rho = m.ay * m.rho;
+  m.ay_s = m.ay * m.s;
+  return m;
+}
+
+// warp + closed-form GGX sigma_std: sigma = (|warp(k)| + c) / 2; also c
+__device__ __forceinline__ void sigma(const Material& m, float kx, float ky,
+                                      float kz, Dual* sig, Dual* c) {
+  const Dual a = kx * m.ax + ky * m.ay_rho;
+  const Dual b = ky * m.ay_s;
+  *c = kz - kx * m.txn - ky * m.tyn;
+  const Dual nrm = dsqrt(a * a + b * b + *c * *c);
+  *sig = (nrm + *c) * 0.5f;
+}
+
+// Smith G1 = k.z / sigma(k), gated as in ggx_evalp_soa
+__device__ __forceinline__ Dual g1(float kz, const Dual& sig, const Dual& c) {
+  const bool ok = c.v > 0.0f && fabsf(sig.v) >= 1e-12f;
+  return ok ? constant(kz) / sig : constant(0.0f);
+}
+
+// One sample's relative-L2 term lr^2 + lg^2 + lb^2 (without the 1/3) with
+// its tangents, added to acc.
+__device__ __forceinline__ void accumulate(const Material& m, float ix,
+                                           float iy, float iz, float ox,
+                                           float oy, float oz, float tr,
+                                           float tg, float tb, float* acc) {
+  float hx = ix + ox, hy = iy + oy, hz = iz + oz;
+  const float hn = rsqrtf(fmaxf(hx * hx + hy * hy + hz * hz, 1e-24f));
+  hx *= hn;
+  hy *= hn;
+  hz *= hn;
+
+  Dual si, ci, so, co;
+  sigma(m, ix, iy, iz, &si, &ci);
+  sigma(m, ox, oy, oz, &so, &co);
+  const Dual g1i = g1(iz, si, ci);
+  const Dual g1o = g1(oz, so, co);
+  const Dual tmp = g1i * g1o;
+  const Dual den = g1i + g1o - tmp;
+  const Dual g = select(tmp.v > 0.0f && fabsf(den.v) >= 1e-12f, tmp / den,
+                        constant(0.0f));
+
+  // ndf: slopes, affine warp, GGX p22
+  const bool valid_h = hz > 1e-4f;
+  const float inv_hz = 1.0f / (valid_h ? hz : 1.0f);
+  const Dual sx = -hx * inv_hz - m.txn;
+  const Dual sy = -hy * inv_hz - m.tyn;
+  const Dual x_ = sx * m.inv_ax;
+  const Dual y_ = (m.ax * sy - m.ay_rho * sx) * m.inv_axays;
+  const Dual r2 = x_ * x_ + y_ * y_;
+  const Dual t1 = 1.0f + r2;
+  const float inv_hz2 = inv_hz * inv_hz;
+  const Dual d_num = (kInvPi * m.inv_axays) * (inv_hz2 * inv_hz2);
+  const Dual d = select(valid_h, d_num / (t1 * t1), constant(0.0f));
+
+  const float cosd = fminf(fmaxf(ox * hx + oy * hy + oz * hz, 0.0f), 1.0f);
+  const float c1 = 1.0f - cosd;
+  const float c2 = c1 * c1;
+  const float c5 = c2 * c2 * c1;
+
+  const float oz4 = 4.0f * oz;
+  const Dual base = select(g.v > 0.0f && fabsf(oz4) >= 1e-12f, d * g / oz4,
+                           constant(0.0f));
+  const Dual lr = ((m.f0r + c5 * (1.0f - m.f0r)) * base - tr) / (tr + kEps);
+  const Dual lg = ((m.f0g + c5 * (1.0f - m.f0g)) * base - tg) / (tg + kEps);
+  const Dual lb = ((m.f0b + c5 * (1.0f - m.f0b)) * base - tb) / (tb + kEps);
+  const Dual l = lr * lr + lg * lg + lb * lb;
+  acc[0] += l.v;
+#pragma unroll
+  for (int k = 0; k < kP; ++k) acc[1 + k] += l.d[k];
+}
+
+__global__ void __launch_bounds__(kBlock)
+fused_fit_ad_pass1(const float* __restrict__ pvec, const float* __restrict__ ix,
+                   const float* __restrict__ iy, const float* __restrict__ iz,
+                   const float* __restrict__ ox, const float* __restrict__ oy,
+                   const float* __restrict__ oz, const float* __restrict__ tr,
+                   const float* __restrict__ tg, const float* __restrict__ tb,
+                   long long n, float* __restrict__ partials) {
+  __shared__ float red[kWarps][kTerms];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
+  const Material m = load_material(pvec);
+
+  float acc[kTerms];
+#pragma unroll
+  for (int c = 0; c < kTerms; ++c) acc[c] = 0.0f;
+  for (int it = 0; it < kItems; ++it) {
+    const long long j = tile0 + it * kBlock + tid;
+    if (j >= n) break;  // the ragged tail: masked, not padded
+    accumulate(m, __ldg(ix + j), __ldg(iy + j), __ldg(iz + j), __ldg(ox + j),
+               __ldg(oy + j), __ldg(oz + j), __ldg(tr + j), __ldg(tg + j),
+               __ldg(tb + j), acc);
+  }
+#pragma unroll
+  for (int c = 0; c < kTerms; ++c) {
+#pragma unroll
+    for (int sh = 16; sh > 0; sh >>= 1)
+      acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], sh);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < kTerms; ++c) red[warp][c] = acc[c];
+  }
+  __syncthreads();
+  if (tid < kTerms) {
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[w][tid];
+    // the loss is the channel mean: (lr^2 + lg^2 + lb^2) / 3
+    partials[static_cast<long long>(blockIdx.x) * kTerms + tid] = s / 3.0f;
+  }
+}
+
+// One CTA sums the partials over the pass-1 blocks in a fixed order, in
+// double.
+__global__ void __launch_bounds__(kBlock)
+fused_fit_ad_pass2(const float* __restrict__ partials, int nblocks,
+                   float* __restrict__ out) {
+  __shared__ double red[kWarps][kTerms];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  double acc[kTerms];
+#pragma unroll
+  for (int c = 0; c < kTerms; ++c) acc[c] = 0.0;
+  for (int b = tid; b < nblocks; b += kBlock) {
+    const float* row = partials + static_cast<long long>(b) * kTerms;
+#pragma unroll
+    for (int c = 0; c < kTerms; ++c) acc[c] += row[c];
+  }
+#pragma unroll
+  for (int c = 0; c < kTerms; ++c) {
+#pragma unroll
+    for (int sh = 16; sh > 0; sh >>= 1)
+      acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], sh);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < kTerms; ++c) red[warp][c] = acc[c];
+  }
+  __syncthreads();
+  if (tid < kTerms) {
+    double s = 0.0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[w][tid];
+    out[tid] = static_cast<float>(s);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Samples per pass-1 CTA: the caller sizes partials as (ceil(n / tile), 9).
+int djbt_fused_fit_ad_tile(void) { return kTile; }
+
+const char* djbt_fused_fit_ad_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// device: the CUDA device of every pointer and of `stream`. pvec (8);
+// ix..oz, tr, tg, tb (n); partials (nblocks, 9); out (9) = [loss_sum,
+// grad_sum(8)]. All float32 and contiguous. Returns the CUDA error of the
+// launches (0 on success).
+int djbt_fused_fit_ad(int device, const void* pvec, const void* ix,
+                      const void* iy, const void* iz, const void* ox,
+                      const void* oy, const void* oz, const void* tr,
+                      const void* tg, const void* tb, long long n, int nblocks,
+                      void* partials, void* out, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  float* part = static_cast<float*>(partials);
+  fused_fit_ad_pass1<<<nblocks, kBlock, 0, s>>>(
+      f(pvec), f(ix), f(iy), f(iz), f(ox), f(oy), f(oz), f(tr), f(tg), f(tb),
+      n, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_fit_ad_pass2<<<1, kBlock, 0, s>>>(part, nblocks,
+                                          static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -12,9 +12,16 @@ Gradients are w.r.t. the 8 constrained parameters
 ``fit.lsq.raw_to_model`` comes from torch autograd around
 :class:`FusedFitLoss`.
 
+``ggx_lsq_value_and_grad(..., adjoint="ad")`` is the cross-check of
+that hand adjoint: the same GGX loss with its gradient derived a second
+way, by the forward-mode dual numbers of ``csrc/fused_fit_ad.cu`` on
+CUDA tensors, and by ``torch.autograd`` of the eager
+:func:`~dj_brdf_torch.ops.soa.ggx_lsq_loss_soa` (its plain version) on
+CPU tensors.
+
 Counterpart of ``dj_brdf_tpu/ops/fused_fit.py``. The TPU knobs
-``block_rows``, ``interpret``, ``adjoint`` and ``pad_to_block`` have no
-counterpart: the CUDA kernel masks its own ragged tail.
+``block_rows``, ``interpret`` and ``pad_to_block`` have no counterpart:
+the CUDA kernels mask their own ragged tail.
 """
 
 from __future__ import annotations
@@ -29,10 +36,15 @@ from dj_brdf_torch.ops import soa
 #: pass-1 launches of the CUDA kernel in this process (plain-version
 #: calls on CPU tensors do not count)
 LAUNCHES = 0
+#: launches of the autodiff cross-check kernel (``adjoint="ad"``), counted
+#: apart from the hand-adjoint kernel's
+LAUNCHES_AD = 0
 
 FAMILIES = {"ggx": 0, "beck": 1}
+ADJOINTS = ("hand", "ad")
 _PLAIN = {"ggx": soa.ggx_lsq_fwdbwd_soa, "beck": soa.beckmann_lsq_fwdbwd_soa}
 _LIB = "fused_fit"
+_LIB_AD = "fused_fit_ad"
 
 
 @functools.cache
@@ -51,6 +63,24 @@ def _lib():
     lib.djbt_fused_fit_tile.restype = ctypes.c_int
     lib.djbt_error_string.argtypes = [ctypes.c_int]
     lib.djbt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _lib_ad():
+    """The built autodiff cross-check library, signatures declared."""
+    from dj_brdf_torch.ops import _build
+
+    lib = _build.load(_LIB_AD)
+    ptr = ctypes.c_void_p
+    lib.djbt_fused_fit_ad.argtypes = ([ctypes.c_int] + [ptr] * 10
+                                      + [ctypes.c_longlong, ctypes.c_int,
+                                         ptr, ptr, ptr])
+    lib.djbt_fused_fit_ad.restype = ctypes.c_int
+    lib.djbt_fused_fit_ad_tile.argtypes = []
+    lib.djbt_fused_fit_ad_tile.restype = ctypes.c_int
+    lib.djbt_fused_fit_ad_error_string.argtypes = [ctypes.c_int]
+    lib.djbt_fused_fit_ad_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -135,6 +165,53 @@ def fwdbwd_sums(pvecs, dirs, tgts, family="ggx"):
     return kernel_fwdbwd_sums(pvecs, dirs, tgts, family)
 
 
+def plain_ad_sums(pvec, dirs, tgts):
+    """K4's plain version: ``(loss_sum, grad_sum (8,))`` of the GGX loss
+    of one material, summed (not averaged) over samples, the gradient
+    from ``torch.autograd`` of the eager
+    :func:`~dj_brdf_torch.ops.soa.ggx_lsq_loss_soa` (the JAX kernel's
+    ``jax.vjp``, scaled to a sum as ``_kernel_ad`` does). Runs on any
+    device."""
+    _, n = _check(pvec[None], dirs, tuple(t[None] for t in tgts), "ggx")
+    with torch.enable_grad():
+        pv = pvec.detach().requires_grad_(True)
+        loss = soa.ggx_lsq_loss_soa(pv, *dirs, *tgts) * n
+        (grad,) = torch.autograd.grad(loss, pv)
+    return loss.detach(), grad
+
+
+def kernel_ad_sums(pvec, dirs, tgts):
+    """Launch the autodiff cross-check kernel: ``(loss_sum, grad_sum
+    (8,))``. Raises on anything the kernel does not take (CPU or strided
+    tensors included) and on a failed launch."""
+    global LAUNCHES_AD
+    _, n = _check(pvec[None], dirs, tuple(t[None] for t in tgts), "ggx")
+    tensors = (pvec, *dirs, *tgts)
+    if pvec.device.type != "cuda":
+        raise ValueError(f"the autodiff fit kernel needs CUDA tensors, got "
+                         f"{pvec.device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("autodiff fit kernel: every tensor must be "
+                         "contiguous")
+    lib = _lib_ad()
+    nblocks = -(-n // lib.djbt_fused_fit_ad_tile())
+    if nblocks > 2**31 - 1:
+        raise ValueError(f"N = {n} is too large for one launch")
+    device = pvec.device
+    partials = torch.empty((nblocks, 9), dtype=torch.float32, device=device)
+    out = torch.empty(9, dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.djbt_fused_fit_ad(device.index, *(t.data_ptr() for t in tensors),
+                                n, nblocks, partials.data_ptr(),
+                                out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            "autodiff fit kernel launch failed: "
+            f"{lib.djbt_fused_fit_ad_error_string(err).decode()} ({err})")
+    LAUNCHES_AD += 1
+    return out[0], out[1:]
+
+
 class FusedFitLoss(torch.autograd.Function):
     """Per-material fit loss ``(M,)`` with the kernel's gradient.
 
@@ -166,11 +243,26 @@ def fused_fit_loss(pvecs, ix, iy, iz, ox, oy, oz, tr, tg, tb,
 
 
 def ggx_lsq_value_and_grad(pvec, ix, iy, iz, ox, oy, oz, tr, tg, tb,
-                           n_valid: int | None = None, family: str = "ggx"):
+                           n_valid: int | None = None, family: str = "ggx",
+                           adjoint: str = "hand"):
     """Returns (loss, grad(8,)) for the relative-L2 microfacet+Schlick
     fit of one material (``family``: "ggx" or "beck" — the reference's
     co-equal fit pair, dj_brdf.h:3133-3184). Inputs are flat f32
-    tensors of any length N; ``n_valid`` (default N) divides the sums."""
+    tensors of any length N; ``n_valid`` (default N) divides the sums.
+    ``adjoint`` selects how the gradient is derived: "hand" (the
+    analytic adjoint, default) or "ad" (automatic differentiation, the
+    cross-check; GGX only)."""
+    if adjoint not in ADJOINTS:
+        raise ValueError(f"adjoint must be 'hand' or 'ad', got {adjoint!r}")
+    if adjoint == "ad":
+        if family != "ggx":
+            raise ValueError("adjoint='ad' cross-check exists for the GGX "
+                             f"loss only, got family={family!r}")
+        dirs, tgts = (ix, iy, iz, ox, oy, oz), (tr, tg, tb)
+        sums = plain_ad_sums if pvec.device.type == "cpu" else kernel_ad_sums
+        loss_sum, grad_sum = sums(pvec, dirs, tgts)
+        n = ix.shape[-1] if n_valid is None else n_valid
+        return loss_sum / n, grad_sum / n
     loss, grad = ggx_lsq_value_and_grad_batched(
         pvec[None], ix, iy, iz, ox, oy, oz, tr[None], tg[None], tb[None],
         n_valid=n_valid, family=family)

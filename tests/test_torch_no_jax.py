@@ -28,6 +28,11 @@ SLICE_MODULES = [
     "dj_brdf_torch.models.lambert", "dj_brdf_torch.ops.merl_gather",
     "dj_brdf_torch.fit.tabular", "dj_brdf_torch.fit.moments",
     "dj_brdf_torch.cli", "dj_brdf_torch.cli.merl_params",
+    # slice 3: the autodiff fit kernel's wrapper lives in ops.fused_fit;
+    # rendering
+    "dj_brdf_torch.render", "dj_brdf_torch.render.sphere",
+    "dj_brdf_torch.render.materials", "dj_brdf_torch.render.pathtrace",
+    "dj_brdf_torch.entry",
 ]
 
 
