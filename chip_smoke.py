@@ -10,21 +10,30 @@ Phases, one line each; any failure raises and exits non-zero:
 0. device check (a CUDA card is required: there is no CPU fallback);
    prints ``nvidia-smi``'s name and power limit; TF32 off.
 1. build every kernel source (``dj_brdf_torch/csrc/*.cu``) from source
-   into ``build/dj_brdf_torch/``, one ``nvcc`` per source, in parallel.
+   into ``build/dj_brdf_torch/``, one ``nvcc`` per source, in parallel;
+   beside them, count the f32 operations of one evaluation of each
+   kernel in the SASS of these sources (``cuobjdump -sass``): the
+   operation side of every fused-fit and K4 bound below.
 2. kernel against its plain PyTorch version on the card, both
    families, at the main path's shapes: one material at N = 2^23 + 1000
    (a ragged tail), and M = 100 materials at N = 1,458,000 (one sample
-   per MERL table cell); degenerate samples must add exactly 0.
+   per MERL table cell); a second launch on the same inputs must give
+   the same (M, 9) bit for bit; degenerate samples must add exactly 0.
 3. ``fit_materials`` on 100 random isotropic GGX materials at
    1,458,000 directions, 1000 steps: parameter recovery.
 4. the same with 100 Beckmann materials, 150 steps.
 5. ``fit_lsq`` on one GGX material at N = 2^23, 400 steps.
-6. kernel and plain version timed with CUDA events at those shapes.
+6. kernel and plain version timed with CUDA events at those shapes,
+   each beside its bound (the least time the card could take: bytes
+   over the HBM rate or f32 operations over the f32 rate, the larger),
+   with the kernel's grid and resident CTAs per SM.
 7. the MERL gather kernels against their plain versions, bit for bit:
    K5 (flat index) and K6 (row/lane index into the padded plane) at
    2^22 uniform-random indices into one uniform-random 1,458,000-entry
-   plane (``tools/gather_experiments.py``'s shapes), timed; then the
-   gather path itself, K5 and K6 in turn as that script runs them.
+   plane (``tools/gather_experiments.py``'s shapes), timed beside the
+   one PyTorch call that computes each (``plane[idx]``, ``plane2d[row,
+   lane]``); then the gather path itself, K5 and K6 in turn as that
+   script runs them.
 8. MERL targets -> fit: phase 3's 100 GGX+Schlick materials baked into
    100 MERL tables on the card (``io.synth.bake_merl``); the lookup
    kernel against its plain version at M = 100 x N = 1,458,000 (phase
@@ -63,9 +72,12 @@ the kernels; the last line is the device record
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -117,6 +129,64 @@ GATHER_ITERS = 20               # its timed() iterations
 RES_TAB = 90                    # the merl_params program's resolution
 N_CLI = 4                       # tables handed to the CLI in phase 10
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# Bounds: published peaks of one H100 SXM (NVIDIA's data sheet), HBM
+# bytes/s and f32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+OPS_LOOKUP = 6                  # 3 scale and 3 cosine products per lookup
+# f32 operations of each SASS opcode (an FMA counts two, a MUFU one)
+SASS_FLOPS = {"FADD": 1, "FMUL": 1, "FFMA": 2, "MUFU": 1}
+# Kernels that run, once each, on values loaded from memory: one
+# `accumulate` of csrc/fused_fit.cu per family (a sample and a material),
+# one `load_dir` (a sample), and one sample of csrc/fused_fit_ad.cu (the
+# difference of a kernel that loads a material and runs one sample and
+# one that only loads the material). Phase 1 compiles them with the
+# kernel sources and counts their SASS.
+SASS_FUSED = r"""
+#include "fused_fit.cu"
+template <bool kBeck>
+__device__ void one_accumulate(const float* in, float* out) {
+  Material p;
+  float* pf = reinterpret_cast<float*>(&p);
+  for (int c = 0; c < 15; ++c) pf[c] = in[c];
+  Dir d;
+  d.ix = in[15]; d.iy = in[16]; d.iz = in[17];
+  d.ox = in[18]; d.oy = in[19]; d.oz = in[20];
+  d.bsx = in[21]; d.bsy = in[22]; d.inv_hz4 = in[23];
+  d.c5 = in[24]; d.r_oz4 = in[25];
+  d.valid_h = in[26] > 0.0f; d.ok_oz = in[27] > 0.0f;
+  float acc[kTerms] = {};
+  accumulate<kBeck>(p, d, in[28], in[29], in[30], acc);
+  for (int c = 0; c < kTerms; ++c) out[c] = acc[c];
+}
+extern "C" __global__ void count_accumulate_ggx(const float* in, float* out) {
+  one_accumulate<false>(in, out);
+}
+extern "C" __global__ void count_accumulate_beck(const float* in, float* out) {
+  one_accumulate<true>(in, out);
+}
+extern "C" __global__ void count_load_dir(const float* in, float* out) {
+  const Dir d = load_dir(in[0], in[1], in[2], in[3], in[4], in[5]);
+  out[0] = d.bsx; out[1] = d.bsy; out[2] = d.inv_hz4; out[3] = d.c5;
+  out[4] = d.r_oz4; out[5] = d.valid_h; out[6] = d.ok_oz;
+}
+"""
+SASS_AD = r"""
+#include "fused_fit_ad.cu"
+extern "C" __global__ void count_ad_material(const float* in, float* out) {
+  const Material m = load_material(in);
+  const float* mf = reinterpret_cast<const float*>(&m);
+  for (int c = 0; c < static_cast<int>(sizeof(Material) / 4); ++c)
+    out[c] = mf[c];
+}
+extern "C" __global__ void count_ad_sample(const float* in, float* out) {
+  const Material m = load_material(in);
+  float acc[kTerms] = {};
+  accumulate(m, in[8], in[9], in[10], in[11], in[12], in[13], in[14],
+             in[15], in[16], acc);
+  for (int c = 0; c < kTerms; ++c) out[c] = acc[c];
+}
+"""
 
 
 def log(msg):
@@ -164,12 +234,88 @@ def targets_for(dist, alphas, f0s, i, o, chunk=8):
     return out
 
 
+def bound(nbytes, ops):
+    """The least time (ms) the card could take to move ``nbytes`` and do
+    ``ops`` f32 operations, and which of the two sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fused_fit_bound(ops, family, m, n):
+    """The fused fit kernel's bound: directions, targets and parameters
+    read once, (M, 9) written; accumulate per (sample, material) and
+    load_dir per sample (``ops``: phase 1's counts)."""
+    return bound(24 * n + 12 * m * n + 32 * m + 36 * m,
+                 ops[f"accumulate_{family}"] * m * n + ops["load_dir"] * n)
+
+
+def start_sass_counts(_build):
+    """Starts nvcc on the counting kernels (SASS_FUSED, SASS_AD) beside
+    the kernel sources; returns the processes and their cubins."""
+    out = _build.BUILD_DIR / "sass"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in (("fused", SASS_FUSED), ("ad", SASS_AD)):
+        cu, cubin = out / f"count_{name}.cu", out / f"count_{name}.cubin"
+        cu.write_text(text)
+        procs[name] = (cubin, subprocess.Popen(
+            [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-cubin", "-I", str(_build.CSRC), "-o",
+             str(cubin), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def sass_ops(_build, procs):
+    """f32 operations of one evaluation of each kernel, from the SASS of
+    the counting kernels: {accumulate_ggx, accumulate_beck, load_dir,
+    ad_sample}."""
+    cubins = {}
+    for name, (cubin, proc) in procs.items():
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the {name} counting "
+                               f"kernels:\n{report}")
+        cubins[name] = cubin
+    cuobjdump = (shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build._nvcc()), "cuobjdump"))
+
+    def opcodes(cubin, function):
+        sass = subprocess.run([cuobjdump, "-sass", "-fun", function,
+                               str(cubin)], check=True, capture_output=True,
+                              text=True, timeout=120).stdout
+        ops = collections.Counter()
+        for ln in sass.splitlines():
+            mt = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                          r"([A-Z][A-Z0-9_]*)", ln)
+            if mt:
+                ops[mt.group(1).split(".")[0]] += 1
+        if not ops:
+            raise RuntimeError(f"cuobjdump found no SASS for {function}")
+        return ops
+
+    def flops(ops):
+        return sum(SASS_FLOPS.get(k, 0) * v for k, v in ops.items())
+    out = {name: flops(opcodes(cubins["fused"], f"count_{name}"))
+           for name in ("accumulate_ggx", "accumulate_beck", "load_dir")}
+    sample = opcodes(cubins["ad"], "count_ad_sample")
+    sample.subtract(opcodes(cubins["ad"], "count_ad_material"))
+    out["ad_sample"] = flops(+sample)
+    return out
+
+
 def compare(name, family, pvecs, dirs, tgts, n):
-    """Kernel vs plain version on the same inputs; returns the largest
-    absolute error of the normalized loss and gradient."""
+    """Kernel vs plain version on the same inputs, and a second launch
+    equal to the first bit for bit; returns the largest absolute error of
+    the normalized loss and gradient."""
     from dj_brdf_torch.ops import fused_fit as ff
 
     lk, gk = ff.kernel_fwdbwd_sums(pvecs, dirs, tgts, family)
+    lk2, gk2 = ff.kernel_fwdbwd_sums(pvecs, dirs, tgts, family)
+    if not (torch.equal(lk, lk2) and torch.equal(gk, gk2)):
+        raise AssertionError(f"{name}: two launches on the same inputs "
+                             "differ")
     lp, gp = ff.plain_fwdbwd_sums(pvecs, dirs, tgts, family)
     lk, gk, lp, gp = (t.double() / n for t in (lk, gk, lp, gp))
     if not (torch.isfinite(lk).all() and torch.isfinite(gk).all()):
@@ -180,7 +326,8 @@ def compare(name, family, pvecs, dirs, tgts, n):
     err = max(float((lk - lp).abs().max()), float((gk - gp).abs().max()))
     rel = float(((lk - lp).abs() / lp.abs()).max())
     log(f"phase 2 {name}: max|loss rel err| {rel:.3e}, max abs err {err:.3e}"
-        f" -> {'ok' if loss_ok and grad_ok else 'MISMATCH'}")
+        f", a second launch equal bit for bit -> "
+        f"{'ok' if loss_ok and grad_ok else 'MISMATCH'}")
     if not (loss_ok and grad_ok):
         bad = ((gk - gp).abs() - atol - GRAD_RTOL * gp.abs()).amax(dim=1)
         raise AssertionError(f"{name}: kernel disagrees with plain "
@@ -273,10 +420,12 @@ def main(argv=None):
 
     # ---- phase 1: build every kernel source, one nvcc each, in parallel
     t0 = time.perf_counter()
+    counting = start_sass_counts(_build)
     _build.build_all(["fused_fit", "merl_gather", "fused_fit_ad"])
     ff._lib()
     mg._lib()
     ff._lib_ad()
+    ops = sass_ops(_build, counting)
     build_s = time.perf_counter() - t0
     regs = {name: [ln.strip() for ln in _build.ptxas_report(name).splitlines()
                    if "registers" in ln or "spill" in ln]
@@ -284,8 +433,10 @@ def main(argv=None):
     nvcc_s = {k: round(v, 2) for k, v in _build.BUILD_SECONDS.items()}
     log(f"phase 1 build: {build_s:.1f} s (nvcc {nvcc_s}); "
         + " | ".join(r for name in regs for r in regs[name]))
+    log(f"phase 1 f32 operations per evaluation, counted in the SASS: {ops}")
     results["build_s"] = build_s
     results["ptxas"] = regs
+    results["sass_f32_ops"] = ops
 
     # ---- phase 2: kernel vs plain at the main path's shapes
     gen = torch.Generator().manual_seed(args.seed)
@@ -449,20 +600,26 @@ def main(argv=None):
 
         k_ms, p_ms, k_runs, p_runs = timed_pair(kernel, plain, 20, 3)
         nbytes = 24 * n + 12 * n * m
+        b_ms, b_by = fused_fit_bound(ops, family, m, n)
+        sched = ff.schedule_for(pvecs.device, n, m, family)
         timings[f"{family}_M{m}_N{n}"] = {
             "kernel_ms": k_ms, "plain_ms": p_ms, "kernel_runs_ms": k_runs,
             "plain_runs_ms": p_runs, "kernel_GB_per_s": nbytes / k_ms / 1e6,
-            "kernel_evals_per_s": m * n / (k_ms * 1e-3)}
+            "kernel_evals_per_s": m * n / (k_ms * 1e-3), "bound_ms": b_ms,
+            "bound_by": b_by, "bound_share": b_ms / k_ms,
+            "grid": sched.grid, "ctas_per_sm": sched.ctas_per_sm}
         log(f"phase 6 {family} M={m} N={n}: kernel {k_ms:.4f} ms "
             f"({nbytes / k_ms / 1e6:.1f} GB/s, {m * n / (k_ms * 1e-3):.4g} "
-            f"evals/s), plain {p_ms:.3f} ms, plain/kernel {p_ms / k_ms:.1f}x")
+            f"evals/s), plain {p_ms:.3f} ms, plain/kernel {p_ms / k_ms:.1f}x; "
+            f"bound {b_ms:.4f} ms (set by {b_by}), {b_ms / k_ms:.1%} of it; "
+            f"grid {sched.grid} CTAs, {sched.ctas_per_sm} resident per SM")
     results["timings"] = timings
 
     gather = phase7_gathers(mg, ff, dgen, results)
     tables = phase8_merl_fit(mg, ff, alphas, f0s, i, o, launches, results)
     ab, ag, lookup_launches = phase9_tabulate(mg, ff, tables, alphas, results)
     phase10_cli(tables, ab, ag, results)
-    k4 = phase11_k4(mg, ff, dgen, fitted_pvec, results)
+    k4 = phase11_k4(mg, ff, dgen, fitted_pvec, ops, results)
     phase12_entry(results)
     measured_lookups = phase13_pathtrace(mg, ff, tables, results)
     main_launches = dict(launches)
@@ -474,25 +631,29 @@ def main(argv=None):
         with open(args.out, "w") as fh:
             json.dump(results, fh, indent=1)
 
-    kernels = [{"name": f"fused_fit[{family}]", "route": "cuda",
-                "source": SOURCE, "replaces": REPLACES,
-                "launches": main_launches[family],
-                "max_abs_err": errs[family],
-                "ms": timings[f"{family}_M{M_MERL}_N{N_MERL}"]["kernel_ms"],
-                "plain_ms": timings[f"{family}_M{M_MERL}_N{N_MERL}"]["plain_ms"]}
-               for family in ("ggx", "beck")]
+    kernels = []
+    for family in ("ggx", "beck"):
+        t = timings[f"{family}_M{M_MERL}_N{N_MERL}"]
+        kernels.append({"name": f"fused_fit[{family}]", "route": "cuda",
+                        "source": SOURCE, "replaces": REPLACES,
+                        "launches": main_launches[family],
+                        "max_abs_err": errs[family], "ms": t["kernel_ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": None})
     kernels.append({"name": "fused_fit_ad", "route": "cuda",
                     "source": AD_SOURCE, "replaces": AD_REPLACES,
                     "launches": main_launches["fused_fit_ad"],
                     "max_abs_err": k4["max_abs_err"], "ms": k4["kernel_ms"],
-                    "plain_ms": k4["plain_ms"]})
+                    "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+                    "bound_by": k4["bound_by"], "library_ms": None})
     lk = results["merl_fit"]["lookup"]
     kernels.append({"name": "merl_lookup", "route": "cuda",
                     "source": GATHER_SOURCE,
                     "replaces": "tools/gather_experiments.py:113",
                     "launches": main_launches["merl_lookup"],
                     "max_abs_err": lk["max_abs_err"], "ms": lk["kernel_ms"],
-                    "plain_ms": lk["plain_ms"]})
+                    "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
+                    "bound_by": lk["bound_by"], "library_ms": None})
     for name, replaces in (("gather_plane", "tools/gather_experiments.py:113"),
                            ("gather_rowlane", "tools/gather_experiments.py:142")):
         g = gather[name]
@@ -500,7 +661,9 @@ def main(argv=None):
                         "source": GATHER_SOURCE, "replaces": replaces,
                         "launches": g["launches"],
                         "max_abs_err": g["max_abs_err"], "ms": g["kernel_ms"],
-                        "plain_ms": g["plain_ms"]})
+                        "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+                        "bound_by": g["bound_by"],
+                        "library_ms": g["library_ms"]})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on the main path")
@@ -548,23 +711,36 @@ def phase7_gathers(mg, ff, dgen, results):
     row, lane = mg.row_lane(idx)
     out = {}
     nbytes = 8 * N_GATHER + 4 * N_MERL     # index + value per lookup, plane
-    for name, shape, kernel, plain in (
+    # the plane entries this run's indices touch, each read once
+    touched = int(idx.unique().numel())
+    for name, shape, kernel, plain, library, index_bytes in (
             ("gather_plane", (N_MERL,),
              lambda: mg.kernel_gather_plane(plane, idx),
-             lambda: mg.plain_gather_plane(plane, idx)),
+             lambda: mg.plain_gather_plane(plane, idx),
+             lambda: plane[idx], 4),
             ("gather_rowlane", tuple(plane2d.shape),
              lambda: mg.kernel_gather_rowlane(plane2d, row, lane),
-             lambda: mg.plain_gather_rowlane(plane2d, row, lane))):
+             lambda: mg.plain_gather_rowlane(plane2d, row, lane),
+             lambda: plane2d[row, lane], 8)):
         err = exact(name, kernel(), plain())
+        exact(f"{name} library call", library(), plain())
         k_ms, p_ms, k_runs, p_runs = timed_pair(kernel, plain, 20, 5)
+        lib_runs = [cuda_ms(library, 20) for _ in range(2)]
+        lib_ms = min(lib_runs)
+        b_ms, b_by = bound((index_bytes + 4) * N_GATHER + 4 * touched, 0)
         out[name] = {"max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
                      "kernel_runs_ms": k_runs, "plain_runs_ms": p_runs,
+                     "library_ms": lib_ms, "library_runs_ms": lib_runs,
+                     "bound_ms": b_ms, "bound_by": b_by,
                      "lookups_per_s": N_GATHER / (k_ms * 1e-3),
                      "GB_per_s": nbytes / k_ms / 1e6}
         log(f"phase 7 {name} N={N_GATHER} into {shape}: bit for bit (max "
             f"abs err {err}); kernel {k_ms:.4f} ms "
             f"({N_GATHER / (k_ms * 1e-3):.4g} lookups/s, "
-            f"{nbytes / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms")
+            f"{nbytes / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms, one "
+            f"PyTorch call {lib_ms:.4f} ms; bound {b_ms:.4f} ms (set by "
+            f"{b_by}, {touched} plane entries touched), {b_ms / k_ms:.1%} "
+            "of it")
 
     # the gather path: K5, then K6, GATHER_ITERS times each
     reset_counts(mg, ff)
@@ -623,14 +799,21 @@ def phase8_merl_fit(mg, ff, alphas, f0s, i, o, launches, results):
     k_ms, p_ms, k_runs, p_runs = timed_pair(kernel, plain, 10, 3)
     # targets written, indices and cosines read, each table read once
     nbytes = 12 * M_MERL * N_MERL + 8 * N_MERL + 12 * M_MERL * N_MERL
+    # the bound counts only the table cells this run's indices touch
+    touched = int(idx.clamp(0, flat.shape[-1] - 1).unique().numel())
+    b_ms, b_by = bound(12 * M_MERL * N_MERL + 8 * N_MERL
+                       + 12 * M_MERL * touched, OPS_LOOKUP * M_MERL * N_MERL)
     lookup = {"max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
               "kernel_runs_ms": k_runs, "plain_runs_ms": p_runs,
-              "GB_per_s": nbytes / k_ms / 1e6,
+              "GB_per_s": nbytes / k_ms / 1e6, "bound_ms": b_ms,
+              "bound_by": b_by, "cells_touched": touched,
               "lookups_per_s": M_MERL * N_MERL / (k_ms * 1e-3)}
     log(f"phase 8 merl_lookup M={M_MERL} N={N_MERL}: bit for bit (max abs "
         f"err {err}); kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} GB/s, "
         f"{M_MERL * N_MERL / (k_ms * 1e-3):.4g} lookups/s), plain "
-        f"{p_ms:.3f} ms, plain/kernel {p_ms / k_ms:.1f}x")
+        f"{p_ms:.3f} ms, plain/kernel {p_ms / k_ms:.1f}x; bound {b_ms:.4f} "
+        f"ms (set by {b_by}, {touched} of {flat.shape[-1]} cells touched), "
+        f"{b_ms / k_ms:.1%} of it")
 
     # the main path: MERL targets -> fit_materials
     torch.cuda.synchronize()
@@ -758,7 +941,7 @@ def phase10_cli(tables, ab, ag, results):
     results["cli"] = {"wall_s": wall, "rows": rows}
 
 
-def phase11_k4(mg, ff, dgen, fitted_pvec, results):
+def phase11_k4(mg, ff, dgen, fitted_pvec, ops, results):
     """K4, the autodiff cross-check, against its plain version and K1."""
     from dj_brdf_torch.fit.batch import sample_direction_set
     from dj_brdf_torch.fit.lsq import raw_init
@@ -837,9 +1020,12 @@ def phase11_k4(mg, ff, dgen, fitted_pvec, results):
         f"{len(points)} calls; kernel {k_ms:.4f} ms "
         f"({N_RAGGED / (k_ms * 1e-3):.4g} evals/s), plain {p_ms:.3f} ms, "
         f"plain/kernel {p_ms / k_ms:.1f}x")
+    b_ms, b_by = bound(36 * N_RAGGED + 32 + 36, ops["ad_sample"] * N_RAGGED)
+    log(f"phase 11 K4 bound {b_ms:.4f} ms (set by {b_by}), {b_ms / k_ms:.1%} "
+        "of it")
     k4 = {"launches": launches, "max_abs_err": err, "kernel_ms": k_ms,
           "plain_ms": p_ms, "kernel_runs_ms": k_runs, "plain_runs_ms": p_runs,
-          "points": rows}
+          "bound_ms": b_ms, "bound_by": b_by, "points": rows}
     results["k4"] = k4
     return k4
 
@@ -900,7 +1086,9 @@ def phase12_entry(results):
         visible].max())
     grad_ok = bool(((grad - grad_c).abs() <= 1e-4 * grad_c.abs()
                     + 1e-6 * grad_c.abs().max()).all())
-    fwd, args = entry("cuda")
+    fwd, args = entry()                 # the default device is the card
+    if args[1].device.type != "cuda":
+        raise AssertionError("phase 12: entry() did not default to the card")
     with torch.no_grad():
         fwd(*args)
         ms = cuda_ms(lambda: fwd(*args), 20)

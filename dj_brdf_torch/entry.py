@@ -1,7 +1,7 @@
 """The flagship forward: a differentiable sphere render of an
 anisotropic GGX with Schlick Fresnel at res 256.
 
-    forward, args = entry("cuda")
+    forward, args = entry()         # on the card; entry("cpu") on the CPU
     img = forward(*args)            # (256, 256, 3)
 
 Counterpart of ``__graft_entry__.py::entry()``; the JAX package jits
@@ -19,9 +19,11 @@ from dj_brdf_torch.microfacet.params import MicrofacetParams
 from dj_brdf_torch.render.sphere import render_sphere
 
 
-def entry(device=None):
+def entry(device="cuda"):
     """``(forward, example_args)``: ``forward(params, f0, light_dir)``
-    renders the sphere; the example arguments live on ``device``."""
+    renders the sphere; the example arguments live on ``device``, the
+    card unless the caller asks for ``"cpu"`` (without a card the default
+    raises)."""
     dist = GGX()
 
     def forward(params, f0, light_dir):

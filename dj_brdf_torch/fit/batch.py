@@ -29,10 +29,13 @@ from dj_brdf_torch.ops import soa
 from dj_brdf_torch.ops.fused_fit import fused_fit_loss
 
 
-def sample_direction_set(n: int, generator: torch.Generator, device=None):
+def sample_direction_set(n: int, generator: torch.Generator,
+                         device="cuda"):
     """A shared random direction set for fitting targets: i and o with
     theta uniform in [0.03, 1.5) and phi uniform in [0, 2 pi), each
-    (n, 3) float32 on ``device`` (``generator`` must live there)."""
+    (n, 3) float32 on ``device``, the card unless the caller asks for
+    ``"cpu"`` (``generator`` must live there; without a card the default
+    raises)."""
     def uniform(lo, hi):
         u = torch.rand(n, generator=generator, device=device,
                        dtype=torch.float32)

@@ -38,7 +38,9 @@ class RawFit(NamedTuple):
     logit_f0: torch.Tensor  # (3,)
 
 
-def raw_init(alpha: float = 0.3, f0: float = 0.5, device=None) -> RawFit:
+def raw_init(alpha: float = 0.3, f0: float = 0.5, device="cuda") -> RawFit:
+    """The fit's starting point, isotropic ``alpha`` and grey ``f0``, on
+    ``device``: the card unless the caller asks for ``"cpu"``."""
     def full(shape, value):
         return torch.full(shape, value, dtype=torch.float32, device=device)
 

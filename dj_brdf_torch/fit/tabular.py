@@ -14,7 +14,8 @@ are replicated exactly, as in the JAX package.
 BRDF inputs are either *eval functions* ``eval_fn(i, o) -> (..., 3)``
 or model objects with an ``.eval(i, o)`` method (``Merl``, ...). A
 model's tables set the device the pipeline runs on; a bare eval
-function runs on the CPU. Every stage also takes a *stack* of models
+function (or a model without tensors) runs on ``device``, the card
+unless the caller asks for ``"cpu"``. Every stage also takes a *stack* of models
 or tables: a :class:`~dj_brdf_torch.models.merl.Merl` holding
 (M, 3, 90, 90, 180) tables yields (M, ...) tables at every stage, all
 M looked up in one kernel launch per stage (the written-out form of
@@ -58,14 +59,14 @@ def as_model_eval(brdf):
     return (lambda model, i, o: model.eval(i, o)), brdf
 
 
-def _device(model):
-    """The device of a model's first tensor field; the CPU for a bare
-    eval function."""
+def _device(model, device):
+    """The device of a model's first tensor field; ``device`` for a
+    bare eval function or a model without tensors."""
     for name in tensor_fields(model) if model is not None else ():
         value = getattr(model, name)
         if isinstance(value, torch.Tensor):
             return value.device
-    return torch.device("cpu")
+    return torch.device(device)
 
 
 def _phi_grid(dtype) -> np.ndarray:
@@ -83,13 +84,14 @@ def _phi_grid(dtype) -> np.ndarray:
     return np.asarray(vals, ft)
 
 
-def _kernel_matrix(eval_fn, model, res: int) -> torch.Tensor:
+def _kernel_matrix(eval_fn, model, res: int,
+                   device="cuda") -> torch.Tensor:
     """The (*B, cnt, cnt) retro-reflective kernel matrix A with
     A[i, j] = K(j, i) so that one power-iteration step is ``A @ v``
     (reference tabular::compute_p22_smith kernel build,
     dj_brdf.h:2482-2515 + the matrix layout of 2442-2465)."""
     ft = config.default_float()
-    dev = _device(model)
+    dev = _device(model, device)
     cnt = res - 1
     dtheta = np.sqrt(np.pi * 0.5) / cnt
 
@@ -134,12 +136,15 @@ def _power_iteration(A, iterations: int = 4) -> torch.Tensor:
     return torch.cat([1e-2 * v, zero], dim=-1).to(config.default_float())
 
 
-def compute_p22_smith(brdf, res: int, iterations: int = 4) -> torch.Tensor:
+def compute_p22_smith(brdf, res: int, iterations: int = 4,
+                      device="cuda") -> torch.Tensor:
     """Kernel build + power iteration (reference
     tabular::compute_p22_smith, dj_brdf.h:2482-2522). Returns the
-    (*B, res) unnormalized p22 table."""
+    (*B, res) unnormalized p22 table. ``device`` as in
+    :func:`build_tabular`."""
     eval_fn, model = as_model_eval(brdf)
-    return _power_iteration(_kernel_matrix(eval_fn, model, res), iterations)
+    return _power_iteration(_kernel_matrix(eval_fn, model, res, device),
+                            iterations)
 
 
 def _radial_grid(n, ft, device):
@@ -300,16 +305,18 @@ def compute_qf(cdf: torch.Tensor) -> torch.Tensor:
                       torch.ones_like(qf_mid[..., :1])], dim=-1)
 
 
-def build_tabular(brdf, res: int, shadow: bool = True):
+def build_tabular(brdf, res: int, shadow: bool = True, device="cuda"):
     """Full pipeline (reference tabular::tabular ctor,
     dj_brdf.h:2215-2236). ``brdf``: a model with ``.eval`` (its tables
-    set the device) or a bare ``eval_fn(i, o)``. Only the 4-step power
+    set the device) or a bare ``eval_fn(i, o)``, which runs on
+    ``device``: the card unless the caller asks for ``"cpu"`` (without a
+    card the default raises). Only the 4-step power
     iteration runs in float64 (an 89x89 matvec, matching the
     reference's double-precision ``matrix`` class).
 
     Returns ``(Tabular, SplineFresnel)``."""
     eval_fn, model = as_model_eval(brdf)
-    K = _kernel_matrix(eval_fn, model, res)
+    K = _kernel_matrix(eval_fn, model, res, device)
     p22, nint = normalize_p22(_power_iteration(K), return_nint=True)
     sigma = compute_sigma(p22)
     fres_pts = _fresnel_points(eval_fn, model, p22, sigma, res, shadow)

@@ -18,9 +18,10 @@ from dj_brdf_torch.core.math import from_spherical, hd_to_io
 from dj_brdf_torch.models import merl as merl_mod
 
 
-def bake_merl(eval_fn, device=None) -> torch.Tensor:
+def bake_merl(eval_fn, device="cuda") -> torch.Tensor:
     """Evaluate ``eval_fn(i, o) -> (..., 3)`` at MERL bin centers, on
-    ``device`` (the CPU by default). Returns a raw (3, 90, 90, 180)
+    ``device``: the card unless the caller asks for ``"cpu"`` (without a
+    card the default raises). Returns a raw (3, 90, 90, 180)
     float64 table on that device (inverse channel scales applied;
     below-horizon bins set to -1 like real MERL files)."""
     nh, nd, npd = (merl_mod.RES_THETA_H, merl_mod.RES_THETA_D,

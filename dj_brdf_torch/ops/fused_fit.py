@@ -28,12 +28,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
 from dj_brdf_torch.ops import soa
 
-#: pass-1 launches of the CUDA kernel in this process (plain-version
+#: launches of the CUDA kernel in this process (plain-version
 #: calls on CPU tensors do not count)
 LAUNCHES = 0
 #: launches of the autodiff cross-check kernel (``adjoint="ad"``), counted
@@ -54,16 +56,95 @@ def _lib():
     from dj_brdf_torch.ops import _build
 
     lib = _build.load(_LIB)
-    ptr = ctypes.c_void_p
-    lib.djbt_fused_fit.argtypes = ([ctypes.c_int, ctypes.c_int] + [ptr] * 10
-                                   + [ctypes.c_longlong, ctypes.c_int,
-                                      ctypes.c_int, ptr, ptr, ptr])
-    lib.djbt_fused_fit.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.djbt_fused_fit.argtypes = ([i32, i32] + [ptr] * 10
+                                   + [ctypes.c_longlong] + [i32] * 4
+                                   + [ptr] * 4)
+    lib.djbt_fused_fit.restype = i32
     lib.djbt_fused_fit_tile.argtypes = []
-    lib.djbt_fused_fit_tile.restype = ctypes.c_int
-    lib.djbt_error_string.argtypes = [ctypes.c_int]
+    lib.djbt_fused_fit_tile.restype = i32
+    lib.djbt_fused_fit_occupancy.argtypes = ([i32] * 3
+                                             + [ctypes.POINTER(i32)] * 2)
+    lib.djbt_fused_fit_occupancy.restype = i32
+    lib.djbt_error_string.argtypes = [i32]
     lib.djbt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(err, what):
+    if err != 0:
+        raise RuntimeError(f"fused fit kernel {what} failed: "
+                           f"{_lib().djbt_error_string(err).decode()} ({err})")
+
+
+@functools.cache
+def occupancy(device_index, family, m):
+    """Resident CTAs per SM of the kernel of ``family`` on the device for
+    ``m`` materials: ``(with the running sums in global memory, with them
+    in shared memory)``, 0 where they do not fit (the query also sets the
+    kernel's shared-memory limit there)."""
+    ctas, ctas_smem = ctypes.c_int(), ctypes.c_int()
+    _raise_on(_lib().djbt_fused_fit_occupancy(
+        device_index, FAMILIES[family], m, ctypes.byref(ctas),
+        ctypes.byref(ctas_smem)), "occupancy query")
+    return ctas.value, ctas_smem.value
+
+
+class Schedule(NamedTuple):
+    """One launch of the persistent kernel: ``ntiles`` direction tiles;
+    the CTAs' running sums in shared memory where ``acc_in_smem``, else
+    in their rows of partials; ``ctas_per_sm`` CTAs resident per SM;
+    ``grid`` CTAs, each a contiguous slice of the ``ntiles * m`` (tile,
+    material) units; the epilogue sums the CTAs' partial rows in
+    ``groups`` groups of ``group`` CTAs."""
+    ntiles: int
+    acc_in_smem: bool
+    ctas_per_sm: int
+    grid: int
+    group: int
+    groups: int
+
+
+def launch_schedule(n, m, tile, sms, ctas_per_sm, ctas_sums_in_smem):
+    """The launch of the fused fit kernel for ``m`` materials and ``n``
+    samples, ``tile`` samples per tile, on a card of ``sms`` SMs that
+    holds ``ctas_per_sm`` CTAs of the kernel each, or
+    ``ctas_sums_in_smem`` with the running sums in shared memory.
+
+    The running sums go to shared memory unless that leaves fewer CTAs
+    resident. The grid fills the card once (no more CTAs than units),
+    and the epilogue groups are ceil(sqrt(grid)) CTAs, so that neither
+    level sums more than ~sqrt of the grid's rows."""
+    ntiles = -(-n // tile)
+    if ntiles * m > 2**31 - 1:
+        raise ValueError(f"N = {n}, M = {m}: too many (tile, material) "
+                         "units for one launch")
+    if ctas_per_sm < 1:
+        raise RuntimeError("fused fit kernel: no CTA of it fits on an SM")
+    grid = max(1, min(sms * ctas_per_sm, ntiles * m))
+    group = math.isqrt(grid - 1) + 1
+    return Schedule(ntiles, ctas_sums_in_smem >= ctas_per_sm, ctas_per_sm,
+                    grid, group, -(-grid // group))
+
+
+def schedule_for(device, n, m, family):
+    """The :class:`Schedule` of a launch on ``device``."""
+    return launch_schedule(
+        n, m, _lib().djbt_fused_fit_tile(),
+        torch.cuda.get_device_properties(device).multi_processor_count,
+        *occupancy(device.index, family, m))
+
+
+#: per (device, stream): the epilogue's tickets, zero between launches
+_TICKETS: dict = {}
+
+
+def _tickets(device, stream, count):
+    key = (device.index, stream)
+    if key not in _TICKETS or _TICKETS[key].numel() < count:
+        _TICKETS[key] = torch.zeros(max(count, 64), dtype=torch.int32,
+                                    device=device)
+    return _TICKETS[key]
 
 
 @functools.cache
@@ -137,22 +218,19 @@ def kernel_fwdbwd_sums(pvecs, dirs, tgts, family="ggx"):
         # a strided view (e.g. targets[..., c]) would be read wrongly:
         # make the planes contiguous once, outside the step loop
         raise ValueError("fused fit kernel: every tensor must be contiguous")
-    lib = _lib()
-    nblocks = -(-n // lib.djbt_fused_fit_tile())
-    if nblocks > 2**31 - 1:
-        raise ValueError(f"N = {n} is too large for one launch")
     device = pvecs.device
-    partials = torch.empty((nblocks, m, 9), dtype=torch.float32,
-                           device=device)
+    sched = schedule_for(device, n, m, family)
+    partials = torch.empty((sched.grid + sched.groups, m * 9),
+                           dtype=torch.float64, device=device)
     out = torch.empty((m, 9), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.djbt_fused_fit(device.index, FAMILIES[family],
-                             *(t.data_ptr() for t in tensors), n, m,
-                             nblocks, partials.data_ptr(), out.data_ptr(),
-                             stream)
-    if err != 0:
-        raise RuntimeError("fused fit kernel launch failed: "
-                           f"{lib.djbt_error_string(err).decode()} ({err})")
+    tickets = _tickets(device, stream, sched.groups + 1)
+    _raise_on(_lib().djbt_fused_fit(
+        device.index, FAMILIES[family],
+        *(t.data_ptr() for t in tensors), n, m, sched.grid,
+        int(sched.acc_in_smem), sched.group,
+        partials.data_ptr(), tickets.data_ptr(), out.data_ptr(), stream),
+        "launch")
     LAUNCHES += 1
     return out[:, 0], out[:, 1:]
 

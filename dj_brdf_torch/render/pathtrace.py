@@ -177,6 +177,8 @@ def _first_tensor(obj, depth=0):
 
 
 def _render_device(u, generator, mats):
+    """``u``'s device, else the generator's, else that of the first
+    material tensor; the card when there is none."""
     if u is not None:
         return u.device
     if generator is not None:
@@ -185,7 +187,7 @@ def _render_device(u, generator, mats):
         t = _first_tensor(mat)
         if t is not None:
             return t.device
-    return torch.device("cpu")
+    return torch.device("cuda")
 
 
 def _fused_nee_and_sample(infos, pv, is_sphere, l_comp, u1, u2, o_comp):
@@ -352,7 +354,8 @@ def render(sphere_mat, floor_mat, light_dir, light_radiance, sky_radiance,
     bounce an identity.
 
     The render runs on ``u``'s device, else the generator's, else that
-    of the materials' tensors; on a CUDA device every step runs there.
+    of the materials' tensors, else on the card (without a card that
+    raises); on a CUDA device every step runs there.
 
     ``envmap=`` and ``mesh=`` are not ported yet and raise
     ``NotImplementedError``, as do textured and LEAN materials."""

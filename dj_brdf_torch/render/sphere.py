@@ -77,10 +77,11 @@ def render_sphere(evalp_fn, light_dir, res: int = 256,
     frame (e.g. ``partial(brdf.evalp, dist, fres, params)`` or
     ``Merl(...).evalp``). Returns an (res, res, 3) HDR image on
     ``device`` (default: ``light_dir``'s device if it is a tensor, else
-    the CPU). Differentiable w.r.t. anything captured by ``evalp_fn``
-    and the light direction."""
-    if device is None and isinstance(light_dir, torch.Tensor):
-        device = light_dir.device
+    the card; pass ``"cpu"`` for the CPU). Differentiable w.r.t.
+    anything captured by ``evalp_fn`` and the light direction."""
+    if device is None:
+        device = (light_dir.device if isinstance(light_dir, torch.Tensor)
+                  else torch.device("cuda"))
     n, mask = sphere_normals(res, device=device)
     light = normalize(torch.as_tensor(light_dir, dtype=torch.float32,
                                       device=device))

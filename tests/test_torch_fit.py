@@ -122,7 +122,8 @@ def test_fit_materials_matches_jax(family):
 
 def test_fit_materials_recovers_materials():
     """Mirror of the JAX package's batch recovery test."""
-    i, o = tbatch.sample_direction_set(2048, torch.Generator().manual_seed(0))
+    i, o = tbatch.sample_direction_set(2048, torch.Generator().manual_seed(0),
+                                       "cpu")
     alphas = torch.tensor([0.15, 0.35, 0.6])
     f0s = torch.tensor([[0.9, 0.6, 0.3], [0.5, 0.5, 0.5], [0.2, 0.4, 0.8]])
     targets = torch.stack([tmf.evalp(tndf.GGX(), tfres.Schlick(f0=f0),
@@ -157,9 +158,11 @@ def test_fit_materials_rejects_mesh_and_unknown_fused():
 
 
 def test_sample_direction_set():
-    i, o = tbatch.sample_direction_set(4096, torch.Generator().manual_seed(5))
+    i, o = tbatch.sample_direction_set(4096, torch.Generator().manual_seed(5),
+                                       "cpu")
     i2, _ = tbatch.sample_direction_set(4096,
-                                        torch.Generator().manual_seed(5))
+                                        torch.Generator().manual_seed(5),
+                                        "cpu")
     assert torch.equal(i, i2)
     for d in (i, o):
         assert d.shape == (4096, 3) and d.dtype == torch.float32
@@ -171,7 +174,7 @@ def test_sample_direction_set():
 
 def test_raw_init_and_raw_to_model_match_jax():
     jraw = jlsq.raw_init(0.25, 0.7)
-    traw = tlsq.raw_init(0.25, 0.7)
+    traw = tlsq.raw_init(0.25, 0.7, "cpu")
     for k, v in convert.raw_to_numpy(traw).items():
         np.testing.assert_allclose(v, np.asarray(getattr(jraw, k)),
                                    rtol=1e-6)

@@ -81,6 +81,52 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
     assert ff.LAUNCHES == before
 
 
+SCHEDULE_M = [1, 3, 17, 100]
+SCHEDULE_N = [1, 1023, 1025, 1_458_000]
+
+
+@pytest.mark.parametrize("m", SCHEDULE_M)
+@pytest.mark.parametrize("n", SCHEDULE_N)
+def test_launch_schedule_covers_every_unit_once(m, n):
+    """The persistent launch on an H100's 132 SMs: the grid fills the card
+    once and no more CTAs than units; the CTAs' contiguous slices of the
+    (tile, material) units cover each unit once and differ by at most
+    one; the running sums go to shared memory; the epilogue groups cover
+    the grid, with a ticket each and one for the last level."""
+    tile, sms = 1024, 132
+    sched = ff.launch_schedule(n, m, tile, sms, 2, 2)
+    assert sched.ntiles == -(-n // tile) and sched.ntiles * tile >= n
+    assert sched.acc_in_smem and sched.ctas_per_sm == 2
+    work = sched.ntiles * m
+    assert 1 <= sched.grid == min(sms * 2, work)
+    bounds = [work * g // sched.grid for g in range(sched.grid + 1)]
+    sizes = np.diff(bounds)
+    assert bounds[0] == 0 and bounds[-1] == work
+    assert sizes.min() >= 1 and sizes.max() - sizes.min() <= 1
+    assert sched.group * sched.groups >= sched.grid
+    assert (sched.groups - 1) * sched.group < sched.grid
+    assert sched.group <= int(np.ceil(np.sqrt(sched.grid)))
+
+
+@pytest.mark.parametrize("m", SCHEDULE_M)
+def test_launch_schedule_keeps_the_sums_in_global_memory_if_they_cost_a_cta(
+        m):
+    # room for the running sums at 2 CTAs per SM only below M = 17
+    sched = ff.launch_schedule(1000, m, 1024, 132, 2, 2 if m < 17 else 1)
+    assert sched.acc_in_smem == (m < 17) and sched.ctas_per_sm == 2
+    assert ff.launch_schedule(1000, m, 1024, 132, 2, 0).acc_in_smem is False
+
+
+def test_launch_schedule_raises_when_no_cta_fits():
+    with pytest.raises(RuntimeError, match="fits"):
+        ff.launch_schedule(4096, 1, 1024, 132, 0, 0)
+
+
+def test_launch_schedule_refuses_more_units_than_an_int_holds():
+    with pytest.raises(ValueError, match="units"):
+        ff.launch_schedule(2**31, 1024, 1024, 132, 2, 2)
+
+
 def test_build_names_library_by_source_and_fails_loudly(tmp_path,
                                                         monkeypatch):
     path = _build.library_path("fused_fit")
@@ -110,6 +156,101 @@ def test_kernel_matches_plain_on_gpu(family, n):
     torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-30)
     torch.testing.assert_close(
         gk, gp, rtol=3e-4, atol=1e-5 * float(gp.abs().max()))
+
+
+def check_kernel(pv, dirs, tgts, family):
+    """One launch against the plain version at the JAX package's kernel
+    tolerances, and a second launch equal to it bit for bit."""
+    before = ff.LAUNCHES
+    lk, gk = ff.kernel_fwdbwd_sums(pv, dirs, tgts, family)
+    lk2, gk2 = ff.kernel_fwdbwd_sums(pv, dirs, tgts, family)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES == before + 2
+    assert torch.equal(lk, lk2) and torch.equal(gk, gk2)
+    lp, gp = ff.plain_fwdbwd_sums(pv, dirs, tgts, family)
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-30)
+    atol = 1e-5 * gp.abs().amax(dim=1, keepdim=True)
+    assert bool(((gk - gp).abs() <= atol + 3e-4 * gp.abs()).all())
+
+
+@needs_cuda
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("n", [4097, 4098, 4099])
+def test_kernel_unaligned_rows_on_gpu(family, n):
+    """M = 3 with N % 4 in {1, 2, 3}: rows k*N after the first are not
+    16-B aligned and take the 4-B copies."""
+    check_kernel(*inputs(n, 3, family, seed=n, device=CUDA), family)
+
+
+@needs_cuda
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("m", [1, 5, 17])
+def test_kernel_materials_not_a_multiple_of_the_stages_on_gpu(family, m):
+    check_kernel(*inputs(6000, m, family, seed=m, device=CUDA), family)
+
+
+@needs_cuda
+@pytest.mark.parametrize("family", FAMILIES)
+def test_kernel_many_tiles_per_cta_with_a_ragged_tail_on_gpu(family):
+    """Every persistent CTA walks several tiles (and slices start inside
+    a tile), and the last tile is ragged."""
+    tile = ff._lib().djbt_fused_fit_tile()
+    sms = torch.cuda.get_device_properties(CUDA).multi_processor_count
+    n = 3 * 8 * sms * tile + 77
+    check_kernel(*inputs(n, 2, family, seed=1, device=CUDA), family)
+
+
+@needs_cuda
+@pytest.mark.parametrize("family", FAMILIES)
+def test_kernel_unaligned_base_on_gpu(family):
+    """Planes that start 4 B past a 16-B boundary (contiguous views into
+    a larger buffer): every row takes the 4-B copies."""
+    pv, dirs, tgts = inputs(5000, 3, family, seed=11, device=CUDA)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=CUDA)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    dirs, tgts = [shifted(d) for d in dirs], [shifted(t) for t in tgts]
+    assert all(t.is_contiguous() and t.data_ptr() % 16 == 4
+               for t in (*dirs, *tgts))
+    check_kernel(pv, dirs, tgts, family)
+
+
+@needs_cuda
+@pytest.mark.parametrize("family", FAMILIES)
+def test_kernel_sums_in_global_memory_on_gpu(family):
+    """So many materials that their running sums would cost a resident
+    CTA: the CTAs keep them in their rows of partials."""
+    pv, dirs, tgts = inputs(1500, 600, family, seed=5, device=CUDA)
+    assert not ff.schedule_for(pv.device, 1500, 600, family).acc_in_smem
+    check_kernel(pv, dirs, tgts, family)
+
+
+@needs_cuda
+@pytest.mark.parametrize("family", FAMILIES)
+def test_kernel_ragged_tail_adds_exactly_nothing_on_gpu(family):
+    """The kernel computes the samples past the end of a ragged last tile
+    too, as i = (0, 0, 1), o = -i with zero targets: the same launch with
+    the tail filled so by hand gives the same sums bit for bit."""
+    n, full = 1025, 2048                  # two tiles either way
+    pv, dirs, tgts = inputs(n, 3, family, seed=2, device=CUDA)
+    fill = [0.0, 0.0, 1.0, 0.0, 0.0, -1.0]
+    pdirs = [torch.cat([d, torch.full((full - n,), f, device=CUDA)])
+             for d, f in zip(dirs, fill)]
+    ptgts = [torch.cat([t, torch.zeros((3, full - n), device=CUDA)], 1)
+             for t in tgts]
+    assert (ff.schedule_for(pv.device, n, 3, family)
+            == ff.schedule_for(pv.device, full, 3, family))
+    lk, gk = ff.kernel_fwdbwd_sums(pv, dirs, tgts, family)
+    lf, gf = ff.kernel_fwdbwd_sums(pv, pdirs, ptgts, family)
+    assert torch.equal(lk, lf) and torch.equal(gk, gf)
+
+
+@needs_cuda
+def test_kernel_one_sample_on_gpu():
+    check_kernel(*inputs(1, 1, "ggx", seed=3, device=CUDA), "ggx")
 
 
 @needs_cuda

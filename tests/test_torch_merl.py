@@ -209,7 +209,7 @@ def test_bake_merl_matches_jax(kd):
     so there the two are held to rtol 1e-4 of each other. The -1 mask is
     the same everywhere."""
     want = jsynth.bake_merl(jax_ggx(0.3, kd=kd))
-    got = tsynth.bake_merl(torch_ggx(0.3, kd=kd))
+    got = tsynth.bake_merl(torch_ggx(0.3, kd=kd), "cpu")
     assert got.dtype == torch.float64 and got.shape == (3, 90, 90, 180)
     got = got.numpy()
     np.testing.assert_array_equal(got == -1.0, want == -1.0)

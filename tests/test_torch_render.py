@@ -206,7 +206,8 @@ def test_render_sphere_matches_jax():
     got = tsphere.render_sphere(
         lambda i, o: tbrdf.evalp(tndf.GGX(), tfres.Schlick(
             f0=torch.tensor(f0)), tp, i, o), LIGHT, res=32,
-        light_radiance=(2.0, 1.0, 0.5), view_dir=(0.1, -0.2, 1.0))
+        light_radiance=(2.0, 1.0, 0.5), view_dir=(0.1, -0.2, 1.0),
+        device="cpu")
     assert got.shape == (32, 32, 3)
     close(got, want, rtol=1e-5, atol_rel=1e-6)
     u, v = tsphere.sphere_uv(tsphere.sphere_normals(32)[0])
@@ -241,7 +242,7 @@ def test_entry_forward_and_gradient_match_jax():
     import __graft_entry__ as graft
 
     jfwd, jargs = graft.entry()
-    tfwd, targs = t_entry()
+    tfwd, targs = t_entry("cpu")
     want = jfwd(*jargs)
     got = tfwd(*targs)
     assert got.shape == (256, 256, 3)
@@ -332,7 +333,7 @@ def test_measured_material_from_model_matches_jax():
             f0=jnp.asarray(f0)), JParams.isotropic(0.3), i, o), res=16)
     tm = tmat.MeasuredMaterial.from_model(microfacet_eval_fn(
         tndf.GGX(), tfres.Schlick(f0=torch.tensor(f0)),
-        TParams.isotropic(0.3)), res=16)
+        TParams.isotropic(0.3)), res=16, device="cpu")
     np.testing.assert_allclose(float(tm.proxy_params.ax),
                                float(jm.proxy_params.ax), rtol=1e-4)
     o, _, u = gated_lanes(256, 9)

@@ -184,7 +184,8 @@ def test_build_tabular_matches_jax(tables, res, k):
 
 
 def test_build_tabular_of_an_eval_function_matches_jax():
-    """A bare eval function (no tables) tabulates on the CPU."""
+    """A bare eval function (no tables) tabulates on the device asked for,
+    here the CPU."""
     res = 24
     jd, _ = jtab.build_tabular(jtab.microfacet_eval_fn(
         jndf.GGX(), jfres.Schlick(f0=jnp.asarray([0.9, 0.6, 0.3])),
@@ -193,7 +194,7 @@ def test_build_tabular_of_an_eval_function_matches_jax():
     from dj_brdf_torch.microfacet.params import MicrofacetParams as TParams
     td, _ = ttab.build_tabular(ttab.microfacet_eval_fn(
         tndf.GGX(), tfres.Schlick(f0=torch.tensor([0.9, 0.6, 0.3])),
-        TParams.isotropic(0.4)), res)
+        TParams.isotropic(0.4)), res, device="cpu")
     check(td.p22, jd.p22, rtol=P22_RTOL)
     check(td.qf, jd.qf, atol=QF_ATOL)
 
