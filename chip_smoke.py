@@ -3,7 +3,11 @@
 measured MERL data through tabulation to fitted roughness, the autodiff
 cross-check of the fit step, and rendering.
 
-    python3 chip_smoke.py [--seed 0] [--out results.json]
+    python3 chip_smoke.py [--seed 0] [--out results.json] [--baseline DIR]
+
+``--baseline DIR``: a checkout of another commit of the port (for
+example ``git archive REV | tar -x -C build/baseline``); phase 14 then
+times its MERL lookup and K4 against this checkout's, in turns.
 
 Phases, one line each; any failure raises and exits non-zero:
 
@@ -36,9 +40,13 @@ Phases, one line each; any failure raises and exits non-zero:
    script runs them.
 8. MERL targets -> fit: phase 3's 100 GGX+Schlick materials baked into
    100 MERL tables on the card (``io.synth.bake_merl``); the lookup
-   kernel against its plain version at M = 100 x N = 1,458,000 (phase
-   3's directions), bit for bit, timed; then ``merl_targets`` and
-   ``fit_materials`` (GGX, 1000 steps) with phase 3's recovery bounds.
+   against its plain version at M = 100 x N = 1,458,000 (phase 3's
+   directions), bit for bit, timed; each of its two paths (direct,
+   packed) at N = P/16, P/4 and P, bit for bit and timed in turns, with
+   the L2 sectors per lookup and the kernel launches per call of each;
+   ``tables.index_select(2, k)`` timed as a yardstick for the lookup's
+   gather half; then ``merl_targets`` and ``fit_materials`` (GGX, 1000
+   steps) with phase 3's recovery bounds.
 9. ``tabulate_merl_batch(tables, 90)`` on the 100 tables on the card,
    held against the port's CPU path on the first 4; GGX alphas of the
    materials with alpha <= 0.3 within 6%.
@@ -48,8 +56,11 @@ Phases, one line each; any failure raises and exits non-zero:
 11. K4, ``ggx_lsq_value_and_grad(..., adjoint="ad")``, at N = 2^23 + 1000
    and three parameter points (raw_init, phase 5's fit, an anisotropic
    off-centre point): against its plain version (torch.autograd of the
-   eager loss) and against K1, one launch per call, timed;
-   ``family="beck"`` must raise.
+   eager loss) and against K1, one launch per call, two launches equal
+   bit for bit, timed; its registers, spills and resident CTAs per SM,
+   and its share of two bounds (this build's SASS count and the 1,702
+   operations per sample of its first design, one exact divide per
+   tangent); ``family="beck"`` must raise.
 12. the ``entry()`` sphere (res 256) on the card against the port's CPU
    path, and one gradient of the image mean w.r.t. the params against
    the CPU gradient; timed and profiled.
@@ -60,6 +71,14 @@ Phases, one line each; any failure raises and exits non-zero:
    32, spp 4 with the same uniforms; one backward at res 256; and
    ``MeasuredMaterial.from_merl`` on a phase-8 table through the
    generic loop at res 128, spp 4.
+14. with ``--baseline DIR`` only, the A/B: the MERL lookup (at phase 8's
+   shape by CUDA events, at the tabulation's and the path tracer's by
+   device time) and K4 (at phase 11's shape), each checkout's in a
+   process of its own, in turns (baseline, this, this, baseline), on
+   the same inputs made from the seed; through the public entry points
+   ``kernel_merl_lookup`` and ``kernel_ad_sums``, which both keep, so
+   any two commits of the port compare. The lookups must agree bit for
+   bit, K4 within phase 11's tolerances.
 
 Each main path (phases 3-5, the gather path of 7, 8, 9, 11 and the
 measured render of 13) runs with the launch counts of the wrappers set
@@ -114,6 +133,21 @@ REPLACES = "dj_brdf_tpu/ops/fused_fit.py:51"
 AD_SOURCE = "dj_brdf_torch/csrc/fused_fit_ad.cu"
 AD_REPLACES = "dj_brdf_tpu/ops/fused_fit.py:63"
 LOSS_RTOL_AD = 1e-5             # K4 and its plain version: exact divides
+OPS_AD_SAMPLE_FIRST = 1702      # K4's f32 operations per sample in the SASS
+                                # of its first design (an exact divide per
+                                # tangent): the same work, whatever
+                                # implements it, for the second share
+# K4's targets and timed point (phases 11 and 14): targets of another
+# material than phase 5's (at phase 5's fitted point its own targets have
+# a loss of ~1e-10 and gradients at f32 rounding level, where no relative
+# bound means anything), and an anisotropic off-centre point
+AD_TRUTH = (0.2, 0.3, -0.15, -0.03, 0.02, 0.85, 0.55, 0.35)
+AD_POINT = (0.35, 0.18, 0.25, 0.06, -0.04, 0.8, 0.5, 0.2)
+# phase 14's lookups, as (M, N, with iz): merl_targets' and those of
+# tabulate_merl_batch(tables, 90) (two per call) and of the path tracer's
+# measured material (phase 13)
+AB_LOOKUPS = ((M_MERL, N_MERL, True), (M_MERL, 89, False),
+              (M_MERL, 15842, False), (1, 65536, True))
 # the path tracer: bench.py's scene and sizes (bench.py:467-499)
 PT_RES, PT_SPP, PT_BOUNCES = 512, 8, 3
 PT_FRAMES = 7
@@ -305,6 +339,30 @@ def sass_ops(_build, procs):
     return out
 
 
+def device_ms(fn, reps):
+    """Device milliseconds of one ``fn()``: the summed durations of the
+    kernels it launches (torch.profiler) over ``reps`` calls; for calls
+    too short for CUDA events to see past the host. A session that
+    recorded no kernel, or not the same number for every call, is run
+    again (seen once on an H100 in a few dozen sessions)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset"))]
+        if kernels and len(kernels) % reps == 0:
+            return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+    raise AssertionError("torch.profiler recorded no whole set of CUDA "
+                         "kernels in three sessions")
+
+
 def compare(name, family, pvecs, dirs, tgts, n):
     """Kernel vs plain version on the same inputs, and a second launch
     equal to the first bit for bit; returns the largest absolute error of
@@ -393,7 +451,15 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", default=None,
                         help="also write the full results to this JSON file")
+    parser.add_argument("--baseline", default=None,
+                        help="a checkout of another commit of the port to "
+                             "time the MERL lookup and K4 against (phase 14)")
+    parser.add_argument("--ab-times", default=None, metavar="ROOT",
+                        help=argparse.SUPPRESS)  # one process of phase 14
     args = parser.parse_args(argv)
+    if args.ab_times:
+        print(json.dumps(ab_times(args.ab_times, args.seed)))
+        return
 
     # ---- phase 0: device
     if not torch.cuda.is_available():
@@ -622,6 +688,8 @@ def main(argv=None):
     k4 = phase11_k4(mg, ff, dgen, fitted_pvec, ops, results)
     phase12_entry(results)
     measured_lookups = phase13_pathtrace(mg, ff, tables, results)
+    del tables
+    phase14_ab(args.baseline, args.seed, results)
     main_launches = dict(launches)
     main_launches["merl_lookup"] = (results["merl_fit"]["launches_lookup"]
                                     + lookup_launches + measured_lookups)
@@ -760,9 +828,73 @@ def phase7_gathers(mg, ff, dgen, results):
     return out
 
 
+def packed_launches(m):
+    """Kernels one packed lookup call launches: the mark, then a pack and
+    a lookup per pair of tables (the last of an odd ``m`` alone)."""
+    return 1 + 2 * -(-m // 2)
+
+
+def lookup_sectors(packed, m, n, p, idx):
+    """32-B L2 sectors per lookup and table of a lookup path, counted
+    from this run's indices (not measured): the direct kernel reads 3
+    (one per channel plane); the packed path 1 / G for G = min(m, 2)
+    tables to a record, plus its pack spread over the N lookups: the
+    touched sectors of three planes, one record write per two touched
+    cells and the mark (a byte per cell, once per pair). Index, cosine
+    and output traffic is the same on both paths."""
+    if not packed:
+        return 3.0
+    group = min(m, 2)
+    k = idx.clamp(0, p - 1).long()
+    cells = int(k.unique().numel())
+    plane_sectors = int((k // 8).unique().numel())   # 8 f32 per sector
+    per_table = (n / group + 3 * plane_sectors + cells / 2
+                 + p / (32 * group))
+    return per_table / n
+
+
+def phase8_paths(mg, flat, idx, iz):
+    """Both lookup paths at N = P/16, P/4 and P against the plain
+    version (bit for bit), timed in turns."""
+    from dj_brdf_torch.models import merl as merl_mod
+
+    m, _, p = flat.shape
+    plans = {"direct": False, "packed": True}
+    kernels = {"direct": 1, "packed": packed_launches(m)}
+    out = {}
+    for label, n in (("P/16", p // 16), ("P/4", p // 4), ("P", p)):
+        x, z = idx[:n].contiguous(), iz[:n].contiguous()
+        want = mg.plain_merl_lookup(flat, x, merl_mod.SCALES, z, chunk=10)
+        fns = {}
+        for name, packed in plans.items():
+            fns[name] = (lambda packed=packed: mg.launch_merl_lookup(
+                flat, x, merl_mod.SCALES, z, packed))
+            exact(f"merl_lookup {name} M={m} N={n}", fns[name](), want)
+        del want
+        reps = 10 if n == p else 20
+        runs = {"direct": [], "packed": []}
+        for name in ("direct", "packed", "packed", "direct"):
+            runs[name].append(cuda_ms(fns[name], reps))
+        row = {name: {"ms": min(runs[name]), "runs_ms": runs[name],
+                      "kernel_launches_per_call": kernels[name],
+                      "sectors_per_lookup": lookup_sectors(packed, m, n, p,
+                                                           x)}
+               for name, packed in plans.items()}
+        row["chosen"] = "packed" if mg.lookup_packs(m, n, p) else "direct"
+        out[label] = row
+        log(f"phase 8 lookup paths M={m} N={n} ({label}): direct "
+            f"{row['direct']['ms']:.4f} ms ({row['direct']['sectors_per_lookup']:.2f}"
+            f" sectors/lookup, 1 kernel per call), packed "
+            f"{row['packed']['ms']:.4f} ms ({row['packed']['sectors_per_lookup']:.2f}"
+            f" sectors/lookup, {kernels['packed']} kernels per call); "
+            f"lookup_packs chooses {row['chosen']}; both bit for bit")
+    return out
+
+
 def phase8_merl_fit(mg, ff, alphas, f0s, i, o, launches, results):
     """Bake phase 3's materials into MERL tables on the card, check the
-    lookup kernel at full size, then fit on the MERL targets."""
+    lookup at full size on both its paths, then fit on the MERL
+    targets."""
     from dj_brdf_torch import fresnel
     from dj_brdf_torch.fit.batch import fit_materials, merl_targets
     from dj_brdf_torch.io.synth import bake_merl
@@ -795,6 +927,8 @@ def phase8_merl_fit(mg, ff, alphas, f0s, i, o, launches, results):
     def plain():
         return mg.plain_merl_lookup(flat, idx, merl_mod.SCALES, iz, chunk=10)
 
+    packed = mg.lookup_packs(M_MERL, N_MERL, flat.shape[-1])
+    kernels = packed_launches(M_MERL) if packed else 1
     err = exact(f"merl_lookup M={M_MERL} N={N_MERL}", kernel(), plain())
     k_ms, p_ms, k_runs, p_runs = timed_pair(kernel, plain, 10, 3)
     # targets written, indices and cosines read, each table read once
@@ -807,13 +941,24 @@ def phase8_merl_fit(mg, ff, alphas, f0s, i, o, launches, results):
               "kernel_runs_ms": k_runs, "plain_runs_ms": p_runs,
               "GB_per_s": nbytes / k_ms / 1e6, "bound_ms": b_ms,
               "bound_by": b_by, "cells_touched": touched,
-              "lookups_per_s": M_MERL * N_MERL / (k_ms * 1e-3)}
-    log(f"phase 8 merl_lookup M={M_MERL} N={N_MERL}: bit for bit (max abs "
+              "lookups_per_s": M_MERL * N_MERL / (k_ms * 1e-3),
+              "path": "packed" if packed else "direct",
+              "kernel_launches_per_call": kernels}
+    log(f"phase 8 merl_lookup M={M_MERL} N={N_MERL}: the "
+        f"{lookup['path']} path, {kernels} kernel "
+        f"launches per call (LAUNCHES counts 1); bit for bit (max abs "
         f"err {err}); kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} GB/s, "
         f"{M_MERL * N_MERL / (k_ms * 1e-3):.4g} lookups/s), plain "
         f"{p_ms:.3f} ms, plain/kernel {p_ms / k_ms:.1f}x; bound {b_ms:.4f} "
         f"ms (set by {b_by}, {touched} of {flat.shape[-1]} cells touched), "
         f"{b_ms / k_ms:.1%} of it")
+    lookup["paths"] = phase8_paths(mg, flat, idx, iz)
+    k = idx.clamp(0, flat.shape[-1] - 1).long()
+    lookup["index_select_ms"] = [cuda_ms(lambda: flat.index_select(2, k), 5)
+                                 for _ in range(2)]
+    log(f"phase 8 yardstick for the lookup's gather half (not the lookup: "
+        f"no scale, horizon or cosine, (M, 3, N) out): tables.index_select("
+        f"2, k) {min(lookup['index_select_ms']):.4f} ms")
 
     # the main path: MERL targets -> fit_materials
     torch.cuda.synchronize()
@@ -943,23 +1088,18 @@ def phase10_cli(tables, ab, ag, results):
 
 def phase11_k4(mg, ff, dgen, fitted_pvec, ops, results):
     """K4, the autodiff cross-check, against its plain version and K1."""
+    from dj_brdf_torch.ops import _build
     from dj_brdf_torch.fit.batch import sample_direction_set
     from dj_brdf_torch.fit.lsq import raw_init
     from dj_brdf_torch.ops import soa
 
     i, o = sample_direction_set(N_RAGGED, dgen, "cuda")
     dirs = tuple(c.contiguous() for c in soa.split_dirs(i, o))
-    # targets of another material than phase 5's: at phase 5's fitted
-    # point its own targets have a loss of ~1e-10 and gradients at f32
-    # rounding level, where no relative bound means anything
-    truth = torch.tensor([0.2, 0.3, -0.15, -0.03, 0.02, 0.85, 0.55, 0.35],
-                         device="cuda")
+    truth = torch.tensor(AD_TRUTH, device="cuda")
     tgts = tuple(t.contiguous() for t in soa.ggx_evalp_soa(truth, *dirs))
     points = {"raw_init": soa.raw_to_pvec(raw_init(device="cuda")),
               "fit_lsq": fitted_pvec.to("cuda").contiguous(),
-              "aniso_offcentre": torch.tensor(
-                  [0.35, 0.18, 0.25, 0.06, -0.04, 0.8, 0.5, 0.2],
-                  device="cuda")}
+              "aniso_offcentre": torch.tensor(AD_POINT, device="cuda")}
     try:
         ff.ggx_lsq_value_and_grad(points["raw_init"], *dirs, *tgts,
                                   family="beck", adjoint="ad")
@@ -1013,19 +1153,36 @@ def phase11_k4(mg, ff, dgen, fitted_pvec, ops, results):
                                  f"grad vs K1 {ok_k1})")
 
     pv = points["aniso_offcentre"]
+    l1, g1 = ff.kernel_ad_sums(pv, dirs, tgts)
+    l2, g2 = ff.kernel_ad_sums(pv, dirs, tgts)
+    if not (torch.equal(l1, l2) and torch.equal(g1, g2)):
+        raise AssertionError("phase 11: two K4 launches on the same inputs "
+                             "differ")
     k_ms, p_ms, k_runs, p_runs = timed_pair(
         lambda: ff.kernel_ad_sums(pv, dirs, tgts),
         lambda: ff.plain_ad_sums(pv, dirs, tgts), 20, 3)
+    sched = ff.ad_schedule_for(pv.device, N_RAGGED)
+    regs = [ln.strip() for ln in _build.ptxas_report("fused_fit_ad")
+            .splitlines() if "registers" in ln or "spill" in ln]
     log(f"phase 11 K4 N={N_RAGGED}: launches {launches} for "
-        f"{len(points)} calls; kernel {k_ms:.4f} ms "
-        f"({N_RAGGED / (k_ms * 1e-3):.4g} evals/s), plain {p_ms:.3f} ms, "
-        f"plain/kernel {p_ms / k_ms:.1f}x")
+        f"{len(points)} calls, two launches equal bit for bit; kernel "
+        f"{k_ms:.4f} ms ({N_RAGGED / (k_ms * 1e-3):.4g} evals/s), plain "
+        f"{p_ms:.3f} ms, plain/kernel {p_ms / k_ms:.1f}x; grid {sched.grid} "
+        f"CTAs, {ff.occupancy_ad(pv.device.index)} resident per SM; "
+        + " | ".join(regs))
     b_ms, b_by = bound(36 * N_RAGGED + 32 + 36, ops["ad_sample"] * N_RAGGED)
-    log(f"phase 11 K4 bound {b_ms:.4f} ms (set by {b_by}), {b_ms / k_ms:.1%} "
-        "of it")
+    b_first, b_by_first = bound(36 * N_RAGGED + 32 + 36,
+                                OPS_AD_SAMPLE_FIRST * N_RAGGED)
+    log(f"phase 11 K4 bound {b_ms:.4f} ms (set by {b_by}: "
+        f"{ops['ad_sample']} operations per sample in this build's SASS), "
+        f"{b_ms / k_ms:.1%} of it; against the first design's "
+        f"{OPS_AD_SAMPLE_FIRST} operations per sample {b_first:.4f} ms (set "
+        f"by {b_by_first}), {b_first / k_ms:.1%} of it")
     k4 = {"launches": launches, "max_abs_err": err, "kernel_ms": k_ms,
           "plain_ms": p_ms, "kernel_runs_ms": k_runs, "plain_runs_ms": p_runs,
-          "bound_ms": b_ms, "bound_by": b_by, "points": rows}
+          "bound_ms": b_ms, "bound_by": b_by, "bound_ms_first_design_ops": b_first,
+          "grid": sched.grid, "ctas_per_sm": ff.occupancy_ad(pv.device.index),
+          "ptxas": regs, "points": rows}
     results["k4"] = k4
     return k4
 
@@ -1255,6 +1412,113 @@ def phase13_pathtrace(mg, ff, tables, results):
                        "proxy_alpha": float(measured.proxy_params.ax)}
     results["pathtrace"] = out
     return looked
+
+
+def ab_times(root, seed):
+    """One process of phase 14: the MERL lookup at ``AB_LOOKUPS`` and K4
+    at N = 2^23 + 1000, of the ``dj_brdf_torch`` in the checkout
+    ``root``, through its public entry points, on inputs made on the card
+    from ``seed`` (random tables with below-horizon entries, phase 8's
+    and phase 11's directions); the better of two timings of each, a
+    digest of each lookup's output bits and K4's sums."""
+    import hashlib
+
+    sys.path.insert(0, os.path.abspath(root))
+    import dj_brdf_torch
+    from dj_brdf_torch.fit.batch import sample_direction_set
+    from dj_brdf_torch.models import merl as merl_mod
+    from dj_brdf_torch.ops import _build, soa
+    from dj_brdf_torch.ops import fused_fit as ff
+    from dj_brdf_torch.ops import merl_gather as mg
+
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(
+        dj_brdf_torch.__file__)))
+    if pkg != os.path.abspath(root):
+        raise RuntimeError(f"phase 14 imported dj_brdf_torch from {pkg}, "
+                           f"not {root}")
+    dgen = torch.Generator(device="cuda").manual_seed(seed)
+    i, o = sample_direction_set(N_MERL, dgen, "cuda")
+    idx = merl_mod.merl_flat_index(i, o).reshape(-1).contiguous()
+    iz = i[:, 2].contiguous()
+    tables = torch.rand((M_MERL, 3, merl_mod.PLANE), generator=dgen,
+                        device="cuda") - 0.05
+    out = {"root": pkg, "lookup": {}}
+    for m, n, with_iz in AB_LOOKUPS:
+        tab, x = tables[:m], idx[:n].contiguous()
+        z = iz[:n].contiguous() if with_iz else None
+
+        def fn():
+            return mg.kernel_merl_lookup(tab, x, merl_mod.SCALES, z)
+
+        digest = hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest()
+        ms = [cuda_ms(fn, 10) if n == N_MERL else device_ms(fn, 30)
+              for _ in range(2)]
+        out["lookup"][f"M{m}_N{n}"] = {"ms": min(ms), "sha256": digest}
+    del tables
+    i, o = sample_direction_set(N_RAGGED, dgen, "cuda")
+    dirs = tuple(c.contiguous() for c in soa.split_dirs(i, o))
+    tgts = tuple(t.contiguous() for t in soa.ggx_evalp_soa(
+        torch.tensor(AD_TRUTH, device="cuda"), *dirs))
+    pv = torch.tensor(AD_POINT, device="cuda")
+    loss, grad = ff.kernel_ad_sums(pv, dirs, tgts)
+    ms = [cuda_ms(lambda: ff.kernel_ad_sums(pv, dirs, tgts), 20)
+          for _ in range(2)]
+    out["k4"] = {"ms": min(ms), "sums": [float(loss), *grad.tolist()],
+                 "ptxas": [ln.strip() for ln in _build.ptxas_report(
+                     "fused_fit_ad").splitlines()
+                     if "registers" in ln or "spill" in ln]}
+    return out
+
+
+def phase14_ab(baseline, seed, results):
+    """The MERL lookup and K4 of this checkout against those of the
+    checkout ``baseline``, each in processes of its own, in turns."""
+    if baseline is None:
+        log("phase 14 A/B: not run (no --baseline)")
+        return
+    baseline = os.path.abspath(baseline)
+    torch.cuda.empty_cache()
+    runs = []
+    for root in (baseline, ROOT, ROOT, baseline):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--ab-times", root], capture_output=True, text=True,
+            timeout=600, cwd=root)
+        if proc.returncode != 0:
+            raise RuntimeError(f"phase 14 on {root} failed:\n{proc.stderr}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    base = [r for k, r in enumerate(runs) if k in (0, 3)]
+    this = [r for k, r in enumerate(runs) if k in (1, 2)]
+    out = {"baseline": baseline, "lookup": {}}
+    for key in runs[0]["lookup"]:
+        if len({r["lookup"][key]["sha256"] for r in runs}) != 1:
+            raise AssertionError(f"phase 14: the lookups {key} of the two "
+                                 "checkouts differ")
+        b = [r["lookup"][key]["ms"] for r in base]
+        t = [r["lookup"][key]["ms"] for r in this]
+        out["lookup"][key] = {"baseline_runs_ms": b, "current_runs_ms": t,
+                              "current_over_baseline": min(t) / min(b)}
+        log(f"phase 14 A/B lookup {key} "
+            f"({'CUDA events' if key.endswith(str(N_MERL)) else 'device time'}"
+            f"): baseline {b} ms, this {t} ms, this/baseline "
+            f"{min(t) / min(b):.4f}; bit for bit")
+    a = torch.tensor(base[0]["k4"]["sums"], dtype=torch.float64)
+    c = torch.tensor(this[0]["k4"]["sums"], dtype=torch.float64)
+    if not (abs(float(a[0] - c[0])) <= LOSS_RTOL_AD * abs(float(a[0]))
+            and ((a[1:] - c[1:]).abs() <= GRAD_ATOL_REL * a[1:].abs().max()
+                 + GRAD_RTOL * a[1:].abs()).all()):
+        raise AssertionError("phase 14: K4 of the two checkouts disagrees")
+    b = [r["k4"]["ms"] for r in base]
+    t = [r["k4"]["ms"] for r in this]
+    out["k4"] = {"baseline_runs_ms": b, "current_runs_ms": t,
+                 "current_over_baseline": min(t) / min(b),
+                 "baseline_ptxas": base[0]["k4"]["ptxas"],
+                 "current_ptxas": this[0]["k4"]["ptxas"]}
+    log(f"phase 14 A/B K4 N={N_RAGGED}: baseline {b} ms "
+        f"({' | '.join(base[0]['k4']['ptxas'])}), this {t} ms "
+        f"({' | '.join(this[0]['k4']['ptxas'])}), this/baseline "
+        f"{min(t) / min(b):.4f}; within phase 11's tolerances")
+    results["ab"] = out
 
 
 if __name__ == "__main__":

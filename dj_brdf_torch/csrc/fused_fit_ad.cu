@@ -14,11 +14,15 @@
 // the loss is written once over Dual, following soa.py::ggx_evalp_soa
 // (:22-108) and ggx_lsq_loss_soa (:213-221) line by line: the same 1e-24
 // floor under sqrt(1 - rho^2) and the half-vector rsqrt, the same 1e-12
-// gates, valid_h = hz > 1e-4, the clip of cos(theta_d). Divides are exact
-// (no rcp.approx, unlike K1): the JAX kernel calls the loss without recip.
-// Selects and gates test the value only, so a gated sample adds exactly 0 to
-// every tangent. The plain version this kernel is held against is
-// torch.autograd of dj_brdf_torch/ops/soa.py::ggx_lsq_loss_soa.
+// gates, valid_h = hz > 1e-4, the clip of cos(theta_d). Values are divided
+// exactly (no rcp.approx, unlike K1): the JAX kernel calls the loss without
+// recip. The tangents of a divide or a sqrt take one exact reciprocal of
+// the divisor, (a' - (a/b) b') * (1/b), where nine exact divides would
+// repeat it: they differ from a divide per tangent by an ulp or two, far
+// inside the gradient tolerances (rtol 3e-4). Selects and gates test the
+// value only, so a gated sample adds exactly 0 to every tangent. The plain
+// version this kernel is held against is torch.autograd of
+// dj_brdf_torch/ops/soa.py::ggx_lsq_loss_soa.
 //
 // Where forward and reverse mode may differ: at an exact tie of a max or a
 // clip, JAX's VJP splits the cotangent between the two branches, while a
@@ -26,32 +30,35 @@
 // 1e-24 floor) and samples exactly on a gate; random directions miss them.
 //
 // What bounds it on an H100: per sample, 36 B read (six direction and
-// three target components) against roughly 9 x 120 = ~1,100 f32
-// flop-equivalents (each Dual operation does the value and 8 tangents,
-// and a Dual divide costs 9 exact divides). At 67 TFLOP/s of f32 that is
-// ~30 flop/B above the 3.35 TB/s balance: the kernel is compute-bound,
-// and registers are the scarce resource (a Dual is 9 floats; the 13
-// per-material Duals alone hold 117). A simple design that is right comes
-// first: each thread walks kItems samples of its CTA's tile one after the
-// other (only one sample's Duals live at a time), accumulates the 9 terms
-// (loss + 8 tangents) in registers, and the CTA reduces them by warp
-// shuffles and shared memory into partials (nblocks, 9). A second kernel
-// sums the partials in a fixed order in double, so the result is the same
-// from run to run (no float atomics). The ragged tail is masked in-kernel,
-// not padded. -Xptxas -v at build time reports registers and spills (see
-// ops/_build.py): spills are expected and accepted here.
+// three target components) against ~1,000-1,700 f32 operations (each Dual
+// operation does the value and 8 tangents): ~40 operations per byte, far
+// above the 3.35 TB/s balance, so the kernel is compute-bound, and with
+// one exact divide per tangent (88 per sample) it stalled on their
+// dependent reciprocal-refinement chains. The design: one reciprocal per
+// divisor (above); the per-material Duals computed once per thread, from
+// unit seeds whose zero tangents the compiler folds away; one persistent
+// launch of as many CTAs as the card holds, each walking an even,
+// contiguous share of the 256-sample units, one sample per thread per
+// unit (only one sample's Duals live at a time). A thread sums its terms
+// (loss + 8 tangents) in float over kFlush units, then in double; the CTA
+// reduces them in a fixed order into its row of partials, and the last
+// CTA to arrive (an integer ticket) sums the rows in a fixed order in
+// double. So one launch per call, and the same bits from run to run (no
+// float atomics). The ragged tail is masked in-kernel, not padded.
+// -Xptxas -v at build time reports registers and spills (see
+// ops/_build.py).
 //
 // The kernel allocates nothing and does not synchronise: the caller passes
-// the partials and output buffers and PyTorch's current stream, and each
-// launch's cudaGetLastError() is returned to it.
+// the partials, ticket and output buffers and PyTorch's current stream,
+// and the launch's cudaGetLastError() is returned to it.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBlock = 256;
-constexpr int kItems = 4;
-constexpr int kTile = kBlock * kItems;
+constexpr int kBlock = 256;    // also the samples of one unit
+constexpr int kMinBlocks = 2;  // resident CTAs per SM: 128 registers each
+constexpr int kFlush = 4;      // units summed in float before double
 constexpr int kWarps = kBlock / 32;
 constexpr int kP = 8;       // tangents: one per constrained parameter
 constexpr int kTerms = 9;   // loss + 8 gradient components
@@ -147,36 +154,41 @@ __device__ __forceinline__ Dual operator*(float a, const Dual& b) {
   return b * a;
 }
 
-// a / b with exact divides: (a' - (a/b) b') / b
+// a / b: the value by an exact divide, the tangents by one exact
+// reciprocal, (a' - (a/b) b') * (1/b)
 __device__ __forceinline__ Dual operator/(const Dual& a, const Dual& b) {
   Dual r;
   r.v = a.v / b.v;
+  const float rb = 1.0f / b.v;
 #pragma unroll
-  for (int k = 0; k < kP; ++k) r.d[k] = (a.d[k] - r.v * b.d[k]) / b.v;
+  for (int k = 0; k < kP; ++k) r.d[k] = (a.d[k] - r.v * b.d[k]) * rb;
   return r;
 }
 
 __device__ __forceinline__ Dual operator/(const Dual& a, float b) {
   Dual r;
   r.v = a.v / b;
+  const float rb = 1.0f / b;
 #pragma unroll
-  for (int k = 0; k < kP; ++k) r.d[k] = a.d[k] / b;
+  for (int k = 0; k < kP; ++k) r.d[k] = a.d[k] * rb;
   return r;
 }
 
 __device__ __forceinline__ Dual operator/(float a, const Dual& b) {
   Dual r;
   r.v = a / b.v;
+  const float rb = 1.0f / b.v;
 #pragma unroll
-  for (int k = 0; k < kP; ++k) r.d[k] = -r.v * b.d[k] / b.v;
+  for (int k = 0; k < kP; ++k) r.d[k] = -r.v * b.d[k] * rb;
   return r;
 }
 
 __device__ __forceinline__ Dual dsqrt(const Dual& x) {
   Dual r;
   r.v = sqrtf(x.v);
+  const float h = 1.0f / (2.0f * r.v);
 #pragma unroll
-  for (int k = 0; k < kP; ++k) r.d[k] = x.d[k] / (2.0f * r.v);
+  for (int k = 0; k < kP; ++k) r.d[k] = x.d[k] * h;
   return r;
 }
 
@@ -282,83 +294,99 @@ __device__ __forceinline__ void accumulate(const Material& m, float ix,
   for (int k = 0; k < kP; ++k) acc[1 + k] += l.d[k];
 }
 
-__global__ void __launch_bounds__(kBlock)
-fused_fit_ad_pass1(const float* __restrict__ pvec, const float* __restrict__ ix,
-                   const float* __restrict__ iy, const float* __restrict__ iz,
-                   const float* __restrict__ ox, const float* __restrict__ oy,
-                   const float* __restrict__ oz, const float* __restrict__ tr,
-                   const float* __restrict__ tg, const float* __restrict__ tb,
-                   long long n, float* __restrict__ partials) {
-  __shared__ float red[kWarps][kTerms];
+// The last CTA of the grid to arrive on `ticket`: true in every thread of
+// that CTA, which also resets the ticket for the next launch. Call after
+// this CTA's global writes.
+__device__ __forceinline__ bool last_to_arrive(unsigned* ticket, bool* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    *flag = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    if (*flag) *ticket = 0u;
+  }
+  __syncthreads();
+  if (!*flag) return false;
+  __threadfence();
+  return true;
+}
+
+// CTA b walks units [units * b / grid, units * (b + 1) / grid), unit u
+// being samples [u * kBlock, (u + 1) * kBlock); its row of partials holds
+// its 9 sums in double; the last CTA to arrive sums the rows into out.
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+fused_fit_ad_kernel(const float* __restrict__ pvec,
+                    const float* __restrict__ ix, const float* __restrict__ iy,
+                    const float* __restrict__ iz, const float* __restrict__ ox,
+                    const float* __restrict__ oy, const float* __restrict__ oz,
+                    const float* __restrict__ tr, const float* __restrict__ tg,
+                    const float* __restrict__ tb, long long n,
+                    double* __restrict__ partials,
+                    unsigned* __restrict__ ticket, float* __restrict__ out) {
+  __shared__ double red[kWarps][kTerms];
+  __shared__ bool flag;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
+  const long long units = (n + kBlock - 1) / kBlock;
+  const long long u0 = units * blockIdx.x / gridDim.x;
+  const long long u1 = units * (blockIdx.x + 1) / gridDim.x;
   const Material m = load_material(pvec);
 
   float acc[kTerms];
+  double dacc[kTerms];
 #pragma unroll
-  for (int c = 0; c < kTerms; ++c) acc[c] = 0.0f;
-  for (int it = 0; it < kItems; ++it) {
-    const long long j = tile0 + it * kBlock + tid;
-    if (j >= n) break;  // the ragged tail: masked, not padded
-    accumulate(m, __ldg(ix + j), __ldg(iy + j), __ldg(iz + j), __ldg(ox + j),
-               __ldg(oy + j), __ldg(oz + j), __ldg(tr + j), __ldg(tg + j),
-               __ldg(tb + j), acc);
+  for (int c = 0; c < kTerms; ++c) {
+    acc[c] = 0.0f;
+    dacc[c] = 0.0;
+  }
+  int held = 0;  // units summed in acc
+#pragma unroll 1
+  for (long long u = u0; u < u1; ++u) {
+    const long long j = u * kBlock + tid;
+    if (j < n) {  // the ragged tail: masked, not padded
+      accumulate(m, __ldg(ix + j), __ldg(iy + j), __ldg(iz + j),
+                 __ldg(ox + j), __ldg(oy + j), __ldg(oz + j), __ldg(tr + j),
+                 __ldg(tg + j), __ldg(tb + j), acc);
+    }
+    if (++held == kFlush || u + 1 == u1) {
+#pragma unroll
+      for (int c = 0; c < kTerms; ++c) {
+        dacc[c] += acc[c];
+        acc[c] = 0.0f;
+      }
+      held = 0;
+    }
   }
 #pragma unroll
   for (int c = 0; c < kTerms; ++c) {
 #pragma unroll
     for (int sh = 16; sh > 0; sh >>= 1)
-      acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], sh);
+      dacc[c] += __shfl_xor_sync(0xffffffffu, dacc[c], sh);
   }
   if (lane == 0) {
 #pragma unroll
-    for (int c = 0; c < kTerms; ++c) red[warp][c] = acc[c];
-  }
-  __syncthreads();
-  if (tid < kTerms) {
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w][tid];
-    // the loss is the channel mean: (lr^2 + lg^2 + lb^2) / 3
-    partials[static_cast<long long>(blockIdx.x) * kTerms + tid] = s / 3.0f;
-  }
-}
-
-// One CTA sums the partials over the pass-1 blocks in a fixed order, in
-// double.
-__global__ void __launch_bounds__(kBlock)
-fused_fit_ad_pass2(const float* __restrict__ partials, int nblocks,
-                   float* __restrict__ out) {
-  __shared__ double red[kWarps][kTerms];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  double acc[kTerms];
-#pragma unroll
-  for (int c = 0; c < kTerms; ++c) acc[c] = 0.0;
-  for (int b = tid; b < nblocks; b += kBlock) {
-    const float* row = partials + static_cast<long long>(b) * kTerms;
-#pragma unroll
-    for (int c = 0; c < kTerms; ++c) acc[c] += row[c];
-  }
-#pragma unroll
-  for (int c = 0; c < kTerms; ++c) {
-#pragma unroll
-    for (int sh = 16; sh > 0; sh >>= 1)
-      acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], sh);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int c = 0; c < kTerms; ++c) red[warp][c] = acc[c];
+    for (int c = 0; c < kTerms; ++c) red[warp][c] = dacc[c];
   }
   __syncthreads();
   if (tid < kTerms) {
     double s = 0.0;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) s += red[w][tid];
-    out[tid] = static_cast<float>(s);
+    partials[static_cast<long long>(blockIdx.x) * kTerms + tid] = s;
+  }
+
+  if (!last_to_arrive(ticket, &flag)) return;
+  // warp w sums terms w and w + kWarps over the rows: lane l the rows
+  // l, l + 32, ..., then a fixed shuffle tree
+  for (int c = warp; c < kTerms; c += kWarps) {
+    double s = 0.0;
+    for (int b = lane; b < static_cast<int>(gridDim.x); b += 32)
+      s += __ldcg(partials + static_cast<long long>(b) * kTerms + c);
+#pragma unroll
+    for (int sh = 16; sh > 0; sh >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, sh);
+    // the loss is the channel mean: (lr^2 + lg^2 + lb^2) / 3
+    if (lane == 0) out[c] = static_cast<float>(s / 3.0);
   }
 }
 
@@ -366,34 +394,41 @@ fused_fit_ad_pass2(const float* __restrict__ partials, int nblocks,
 
 extern "C" {
 
-// Samples per pass-1 CTA: the caller sizes partials as (ceil(n / tile), 9).
-int djbt_fused_fit_ad_tile(void) { return kTile; }
+// Samples per unit of work: a CTA walks a contiguous run of units.
+int djbt_fused_fit_ad_unit(void) { return kBlock; }
 
 const char* djbt_fused_fit_ad_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Resident CTAs per SM of the kernel on `device` (its grid is this times
+// the SM count at most). Returns the CUDA error (0 on success).
+int djbt_fused_fit_ad_occupancy(int device, int* ctas_per_sm) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, fused_fit_ad_kernel, kBlock, 0));
+}
+
 // device: the CUDA device of every pointer and of `stream`. pvec (8);
-// ix..oz, tr, tg, tb (n); partials (nblocks, 9); out (9) = [loss_sum,
-// grad_sum(8)]. All float32 and contiguous. Returns the CUDA error of the
-// launches (0 on success).
+// ix..oz, tr, tg, tb (n), float32 and contiguous; grid CTAs, 1 <= grid <=
+// ceil(n / unit); partials: float64 (grid, 9); ticket: one uint32, zero
+// before the launch and left zero by it; out (9) float32 = [loss_sum,
+// grad_sum(8)]. Returns the CUDA error of the launch (0 on success).
 int djbt_fused_fit_ad(int device, const void* pvec, const void* ix,
                       const void* iy, const void* iz, const void* ox,
                       const void* oy, const void* oz, const void* tr,
-                      const void* tg, const void* tb, long long n, int nblocks,
-                      void* partials, void* out, void* stream) {
+                      const void* tg, const void* tb, long long n, int grid,
+                      void* partials, void* ticket, void* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1 || grid < 1 || grid > (n + kBlock - 1) / kBlock)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
-  float* part = static_cast<float*>(partials);
-  fused_fit_ad_pass1<<<nblocks, kBlock, 0, s>>>(
+  fused_fit_ad_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       f(pvec), f(ix), f(iy), f(iz), f(ox), f(oy), f(oz), f(tr), f(tg), f(tb),
-      n, part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_fit_ad_pass2<<<1, kBlock, 0, s>>>(part, nblocks,
-                                          static_cast<float*>(out));
+      n, static_cast<double*>(partials), static_cast<unsigned*>(ticket),
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,8 +6,8 @@ fitted in one loop: the M materials share one direction set, their
 RawFit leaves carry a leading material axis, and each step is one
 launch of the fused fit kernel over all M materials (its plain version
 on the CPU). MERL tables stack on a leading axis in the same way:
-``merl_targets`` looks all M up at the shared directions in one launch
-of the lookup kernel, and ``tabulate_merl_batch`` runs the tabulation
+``merl_targets`` looks all M up at the shared directions in one call
+of the lookup kernels, and ``tabulate_merl_batch`` runs the tabulation
 pipeline on the whole stack at once.
 
 Counterpart of ``dj_brdf_tpu/fit/batch.py``. Sharding the material

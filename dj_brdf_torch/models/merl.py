@@ -10,8 +10,10 @@ channels per sample. The index maths is torch ops; the gather is
 CUDA kernel on the GPU, its plain version on the CPU).
 
 A :class:`Merl` may hold a stack of tables, ``(*B, 3, 90, 90, 180)``:
-all tables are then looked up at the same directions in one kernel
-launch, and the result carries the stack's axes first,
+all tables are then looked up at the same directions in one lookup
+call (one kernel launch, or at large N a pack and a lookup launch per
+pair of tables: ``merl_gather.lookup_packs``), and the result carries
+the stack's axes first,
 ``(*B, *dirs, 3)`` — the written-out form of the JAX package's
 ``vmap`` over tables.
 
@@ -162,5 +164,5 @@ class Merl:
 
     def evalp(self, i, o):
         """f_r * cos(theta_i): the lookup times ``i.z``, in the same
-        kernel launch."""
+        kernels."""
         return self._lookup(i, o, iz_of=i)

@@ -153,16 +153,60 @@ def _lib_ad():
     from dj_brdf_torch.ops import _build
 
     lib = _build.load(_LIB_AD)
-    ptr = ctypes.c_void_p
-    lib.djbt_fused_fit_ad.argtypes = ([ctypes.c_int] + [ptr] * 10
-                                      + [ctypes.c_longlong, ctypes.c_int,
-                                         ptr, ptr, ptr])
-    lib.djbt_fused_fit_ad.restype = ctypes.c_int
-    lib.djbt_fused_fit_ad_tile.argtypes = []
-    lib.djbt_fused_fit_ad_tile.restype = ctypes.c_int
-    lib.djbt_fused_fit_ad_error_string.argtypes = [ctypes.c_int]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.djbt_fused_fit_ad.argtypes = ([i32] + [ptr] * 10
+                                      + [ctypes.c_longlong, i32]
+                                      + [ptr] * 4)
+    lib.djbt_fused_fit_ad.restype = i32
+    lib.djbt_fused_fit_ad_unit.argtypes = []
+    lib.djbt_fused_fit_ad_unit.restype = i32
+    lib.djbt_fused_fit_ad_occupancy.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.djbt_fused_fit_ad_occupancy.restype = i32
+    lib.djbt_fused_fit_ad_error_string.argtypes = [i32]
     lib.djbt_fused_fit_ad_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on_ad(err, what):
+    if err != 0:
+        raise RuntimeError(
+            f"autodiff fit kernel {what} failed: "
+            f"{_lib_ad().djbt_fused_fit_ad_error_string(err).decode()} "
+            f"({err})")
+
+
+@functools.cache
+def occupancy_ad(device_index):
+    """Resident CTAs per SM of the autodiff cross-check kernel."""
+    ctas = ctypes.c_int()
+    _raise_on_ad(_lib_ad().djbt_fused_fit_ad_occupancy(
+        device_index, ctypes.byref(ctas)), "occupancy query")
+    return ctas.value
+
+
+class AdSchedule(NamedTuple):
+    """One launch of the autodiff cross-check kernel: ``units`` runs of
+    ``unit`` samples; ``grid`` CTAs, CTA b taking the units
+    ``[units * b // grid, units * (b + 1) // grid)``."""
+    units: int
+    grid: int
+
+
+def ad_schedule(n, unit, sms, ctas_per_sm):
+    """The persistent launch of K4 for ``n`` samples: as many CTAs as the
+    card holds (``sms`` SMs of ``ctas_per_sm``), no more than units."""
+    units = -(-n // unit)
+    if ctas_per_sm < 1:
+        raise RuntimeError("autodiff fit kernel: no CTA of it fits on an SM")
+    return AdSchedule(units, max(1, min(sms * ctas_per_sm, units)))
+
+
+def ad_schedule_for(device, n):
+    """The :class:`AdSchedule` of a launch on ``device``."""
+    return ad_schedule(
+        n, _lib_ad().djbt_fused_fit_ad_unit(),
+        torch.cuda.get_device_properties(device).multi_processor_count,
+        occupancy_ad(device.index))
 
 
 def _check(pvecs, dirs, tgts, family):
@@ -271,21 +315,16 @@ def kernel_ad_sums(pvec, dirs, tgts):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("autodiff fit kernel: every tensor must be "
                          "contiguous")
-    lib = _lib_ad()
-    nblocks = -(-n // lib.djbt_fused_fit_ad_tile())
-    if nblocks > 2**31 - 1:
-        raise ValueError(f"N = {n} is too large for one launch")
     device = pvec.device
-    partials = torch.empty((nblocks, 9), dtype=torch.float32, device=device)
+    sched = ad_schedule_for(device, n)
+    partials = torch.empty((sched.grid, 9), dtype=torch.float64,
+                           device=device)
     out = torch.empty(9, dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.djbt_fused_fit_ad(device.index, *(t.data_ptr() for t in tensors),
-                                n, nblocks, partials.data_ptr(),
-                                out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(
-            "autodiff fit kernel launch failed: "
-            f"{lib.djbt_fused_fit_ad_error_string(err).decode()} ({err})")
+    _raise_on_ad(_lib_ad().djbt_fused_fit_ad(
+        device.index, *(t.data_ptr() for t in tensors), n, sched.grid,
+        partials.data_ptr(), _tickets(device, stream, 1).data_ptr(),
+        out.data_ptr(), stream), "launch")
     LAUNCHES_AD += 1
     return out[0], out[1:]
 

@@ -10,7 +10,9 @@ never reaches a plain version: the kernel runs, or the call raises.
   ``(N,)`` shared by all M: ``(M, N, 3)`` scaled reflectance, 0 where a
   bin is below the horizon, times ``iz`` for ``evalp``. Counterpart of
   the ``jnp.take`` in ``dj_brdf_tpu/models/merl.py::Merl.eval`` and of
-  the Pallas kernel ``k4`` of ``tools/gather_experiments.py``.
+  the Pallas kernel ``k4`` of ``tools/gather_experiments.py``. On the
+  card it takes one of two kernel paths, chosen by :func:`lookup_packs`:
+  the direct kernel, or mark, pack and look up for large N.
 * :func:`gather_plane` — ``plane[idx]`` from one channel plane (``k4``
   itself).
 * :func:`gather_rowlane` — ``plane2d[row, lane]`` from the plane padded
@@ -30,12 +32,38 @@ import functools
 import torch
 
 #: kernel launches in this process, per wrapper (plain-version calls on
-#: CPU tensors do not count)
+#: CPU tensors do not count); a lookup call counts once, whatever number
+#: of kernels its path launches (one direct kernel, or a mark kernel and
+#: a pack and a lookup kernel per pair of tables)
 LAUNCHES = {"merl_lookup": 0, "gather_plane": 0, "gather_rowlane": 0}
 
 LANES = 128           # lane width of the K6 two-level index
 _MAX_MATERIALS = 65535  # the kernel's grid.y
 _LIB = "merl_gather"
+
+# The lookup's path rule, in 32-B L2 sectors per table. The direct kernel
+# reads three random sectors per lookup, one per channel plane. The
+# packed path packs the tables in pairs, G = min(M, 2) tables to a
+# record, and reads one record sector per lookup for the G tables (1/G
+# per table), after packing the table: at most every sector of its three
+# planes (4-B entries, 3/8 of a sector per cell), its 16-B records (1/2
+# a sector per cell) and the mark (a byte per cell, per pair).
+# Packing pays where 3 N > N / G + P (3/8 + 1/2 + 1 / (32 G)): at
+# G = 2 from N > 0.356 P (519,412 lookups per MERL table), at G = 1
+# (M = 1) from N > 0.453 P.
+SECTOR_BYTES = 32
+PACK_SECTORS_PER_CELL = 3 * 4 / SECTOR_BYTES + 16 / SECTOR_BYTES
+DIRECT_SECTORS_PER_LOOKUP = 3
+
+
+def lookup_packs(m, n, plane):
+    """Whether the lookup of ``m`` tables of ``plane`` cells at ``n``
+    shared indices takes the packed path: where it reads fewer L2 sectors
+    than the direct kernel (see ``PACK_SECTORS_PER_CELL``)."""
+    group = max(1, min(2, m))
+    packed_sectors = n / group + plane * (PACK_SECTORS_PER_CELL
+                                          + 1 / (SECTOR_BYTES * group))
+    return packed_sectors < DIRECT_SECTORS_PER_LOOKUP * n
 
 
 @functools.cache
@@ -49,11 +77,14 @@ def _lib():
                           ctypes.c_float)
     lib.djbt_merl_lookup.argtypes = [i32, ptr, ptr, ptr, i64, i32, i64,
                                      f32, f32, f32, ptr, ptr]
+    lib.djbt_merl_lookup_packed.argtypes = [i32, ptr, ptr, ptr, i64, i32,
+                                            i64, f32, f32, f32, ptr, ptr,
+                                            ptr, ptr]
     lib.djbt_gather_plane.argtypes = [i32, ptr, i64, ptr, i64, ptr, ptr]
     lib.djbt_gather_rowlane.argtypes = [i32, ptr, i32, i32, ptr, ptr, i64,
                                         ptr, ptr]
-    for fn in (lib.djbt_merl_lookup, lib.djbt_gather_plane,
-               lib.djbt_gather_rowlane):
+    for fn in (lib.djbt_merl_lookup, lib.djbt_merl_lookup_packed,
+               lib.djbt_gather_plane, lib.djbt_gather_rowlane):
         fn.restype = ctypes.c_int
     lib.djbt_gather_error_string.argtypes = [ctypes.c_int]
     lib.djbt_gather_error_string.restype = ctypes.c_char_p
@@ -140,9 +171,17 @@ def plain_merl_lookup(tables, idx, scales, iz=None, chunk=None):
 
 
 def kernel_merl_lookup(tables, idx, scales, iz=None):
-    """Launch the lookup kernel: ``(M, N, 3)`` float32. Raises on anything
-    the kernel does not take (CPU or strided tensors included) and on a
-    failed launch."""
+    """Run the lookup kernels on the path :func:`lookup_packs` chooses:
+    ``(M, N, 3)`` float32. Raises on anything the kernels do not take
+    (CPU or strided tensors included) and on a failed launch."""
+    m, _, p = tables.shape
+    return launch_merl_lookup(tables, idx, scales, iz,
+                              lookup_packs(m, idx.shape[0], p))
+
+
+def launch_merl_lookup(tables, idx, scales, iz, packed):
+    """:func:`kernel_merl_lookup` on the packed path or the direct
+    kernel, as ``packed`` says, whatever N is."""
     _check_lookup(tables, idx, iz)
     extra = () if iz is None else (iz,)
     _kernel_ready("merl_lookup", (tables, idx, *extra), ints=(idx,),
@@ -151,14 +190,22 @@ def kernel_merl_lookup(tables, idx, scales, iz=None):
     n = idx.shape[0]
     if m > _MAX_MATERIALS:
         raise ValueError(f"at most {_MAX_MATERIALS} tables per launch, got {m}")
-    out = torch.empty((m, n, 3), dtype=torch.float32, device=tables.device)
+    device = tables.device
+    out = torch.empty((m, n, 3), dtype=torch.float32, device=device)
     if m == 0 or n == 0:
         return out
     s0, s1, s2 = (float(s) for s in scales)
-    _launch("merl_lookup", "djbt_merl_lookup", tables.device,
-            tables.data_ptr(), idx.data_ptr(),
-            None if iz is None else iz.data_ptr(), n, m, p, s0, s1, s2,
-            out.data_ptr())
+    args = (tables.data_ptr(), idx.data_ptr(),
+            None if iz is None else iz.data_ptr(), n, m, p, s0, s1, s2)
+    if not packed:
+        _launch("merl_lookup", "djbt_merl_lookup", device, *args,
+                out.data_ptr())
+        return out
+    # scratch: the mark (a byte per cell) and the records of one pair
+    mark = torch.empty(p, dtype=torch.uint8, device=device)
+    rec = torch.empty((p, min(m, 2), 4), dtype=torch.float32, device=device)
+    _launch("merl_lookup", "djbt_merl_lookup_packed", device, *args,
+            mark.data_ptr(), rec.data_ptr(), out.data_ptr())
     return out
 
 

@@ -141,6 +141,68 @@ def test_cpu_ad_takes_the_plain_version_and_launches_nothing():
         ff.kernel_ad_sums(pvec, dirs, tgts)
 
 
+@pytest.mark.parametrize("ctas_per_sm", [1, 2, 3])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 67_584, 2 ** 23 + 1000])
+def test_ad_schedule_covers_every_unit_once(n, ctas_per_sm):
+    """K4's persistent launch on an H100's 132 SMs: no more CTAs than the
+    card holds or than units; the CTAs' contiguous runs of units cover
+    each unit once and differ by at most one."""
+    unit, sms = 256, 132
+    sched = ff.ad_schedule(n, unit, sms, ctas_per_sm)
+    assert sched.units == -(-n // unit) and sched.units * unit >= n
+    assert 1 <= sched.grid == min(sms * ctas_per_sm, sched.units)
+    bounds = [sched.units * b // sched.grid for b in range(sched.grid + 1)]
+    sizes = np.diff(bounds)
+    assert bounds[0] == 0 and bounds[-1] == sched.units
+    assert sizes.min() >= 1 and sizes.max() - sizes.min() <= 1
+
+
+def test_ad_schedule_raises_when_no_cta_fits():
+    with pytest.raises(RuntimeError, match="no CTA"):
+        ff.ad_schedule(1000, 256, 132, 0)
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()")
+@pytest.mark.parametrize("n", [1, 1023, 1025, 2 ** 20 + 7])
+def test_k4_one_launch_bitwise_repeats_and_plain_and_k1_on_the_card(n):
+    dirs, tgts = batch(n, seed=n % 97, device="cuda")
+    pvec = torch.tensor(PVECS[2], device="cuda")
+    before = ff.LAUNCHES_AD
+    l1, g1 = ff.kernel_ad_sums(pvec, dirs, tgts)
+    l2, g2 = ff.kernel_ad_sums(pvec, dirs, tgts)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES_AD == before + 2
+    assert torch.equal(l1, l2) and torch.equal(g1, g2)
+    lp, gp = ff.plain_ad_sums(pvec, dirs, tgts)
+    np.testing.assert_allclose(float(l1), float(lp), rtol=LOSS_RTOL)
+    assert_grad_close(g1, gp)
+    _, g_hand = ff.ggx_lsq_value_and_grad(pvec, *dirs, *tgts)
+    assert_grad_close(g1 / n, g_hand)
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()")
+def test_k4_gated_samples_add_exactly_nothing_on_the_card():
+    """Samples the loss gates out (o below the horizon, i == -o) with zero
+    targets: loss and every tangent exactly 0."""
+    n = 3000
+    rng = np.random.default_rng(5)
+    th = rng.uniform(0.02, 1.5, n)
+    ph = rng.uniform(0, 2 * np.pi, n)
+    o = np.stack([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph),
+                  np.cos(th)])
+    below = np.arange(n) % 2 == 0
+    o[2, below] *= -1                                  # o below the horizon
+    i = -o                                             # i == -o elsewhere
+    i[:, below] = np.array([[0.0], [0.0], [1.0]])
+    dirs = [torch.tensor(c, dtype=torch.float32, device="cuda")
+            for c in (*i, *o)]
+    zeros = [torch.zeros(n, device="cuda") for _ in range(3)]
+    for pv in PVECS:
+        loss, grad = ff.kernel_ad_sums(torch.tensor(pv, device="cuda"), dirs,
+                                       zeros)
+        assert float(loss) == 0.0 and float(grad.abs().max()) == 0.0
+
+
 @pytest.mark.skipif("not torch.cuda.is_available()")
 @pytest.mark.parametrize("pv", range(len(PVECS) - 1))
 def test_k4_matches_its_plain_version_on_the_card(pv):

@@ -130,6 +130,65 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     assert mg.LAUNCHES == before
 
 
+@pytest.mark.parametrize("m, n, packed", [
+    (100, 1_458_000, True),     # merl_targets at MERL scale
+    (100, 600_000, True),
+    (100, 520_000, True),       # just above N = 0.356 P
+    (100, 519_000, False),      # just below
+    (100, 364_500, False),      # N = P / 4
+    (100, 91_125, False),       # N = P / 16
+    (100, 8_100, False),        # tabulation-sized
+    (1, 65_536, False),         # the path tracer's measured material
+    (1, 1_458_000, True),       # one table: G = 1
+    (1, 660_000, False),        # below G = 1's N = 0.453 P
+    (3, 1_458_000, True),       # an odd M: the last table alone
+    (5, 800_000, True),
+])
+def test_lookup_plan_packs_where_it_reads_fewer_sectors(m, n, packed):
+    assert mg.lookup_packs(m, n, tm.PLANE) is packed
+    # the rule, in sectors per table: 3 per direct lookup against 1 / G per
+    # packed lookup plus the pack's at most 3/8 + 1/2 + 1/(32 G) per cell,
+    # with G = 2 tables to a record (1 for a single table)
+    g = min(2, m)
+    pack = n / g + tm.PLANE * (3 / 8 + 1 / 2 + 1 / (32 * g))
+    assert packed == (pack < 3 * n)
+
+
+def emulate_packed_lookup(tables, idx, scales, iz):
+    """The packed path in torch ops, step for step as the kernels run it:
+    mark the touched cells, pack each pair's marked cells (the last table
+    of an odd M alone) into records of (r s0, g s1, b s2, unused), 0 where
+    any is negative, then look each index up in its pair's records and
+    multiply by iz."""
+    m, _, p = tables.shape
+    k = idx.long().clamp(0, p - 1)
+    mark = torch.zeros(p, dtype=torch.bool)
+    mark[k] = True
+    s = torch.tensor(scales, dtype=torch.float32)
+    out = torch.empty((m, idx.shape[0], 3))
+    for m0 in range(0, m, 2):
+        g = min(2, m - m0)
+        rec = torch.full((p, g, 4), float("nan"))     # unmarked: never read
+        cells = mark.nonzero()[:, 0]
+        rgb = tables[m0:m0 + g][:, :, cells].permute(2, 0, 1) * s
+        rgb = torch.where((rgb < 0.0).any(-1, keepdim=True), 0.0, rgb)
+        rec[cells, :, :3] = rgb
+        got = rec[k][:, :, :3].permute(1, 0, 2)       # (g, N, 3)
+        out[m0:m0 + g] = got if iz is None else got * iz[:, None]
+    return out
+
+
+@pytest.mark.parametrize("with_iz", [False, True], ids=["eval", "evalp"])
+@pytest.mark.parametrize("m", [1, 2, 5])
+def test_packed_lookup_emulation_matches_plain_bit_for_bit(m, with_iz):
+    tables, idx, iz = lookup_inputs(m, 3001, seed=11 + m)
+    iz = iz if with_iz else None
+    got = emulate_packed_lookup(tables, idx, SCALES, iz)
+    want = mg.plain_merl_lookup(tables, idx, SCALES, iz)
+    assert not torch.isnan(got).any()
+    assert torch.equal(got, want)
+
+
 def test_build_names_the_gather_library_by_source():
     path = _build.library_path("merl_gather")
     assert path.parent == _build.BUILD_DIR
@@ -148,6 +207,37 @@ def test_lookup_kernel_matches_plain_bit_for_bit_on_gpu(n, with_iz):
     torch.cuda.synchronize()
     assert mg.LAUNCHES["merl_lookup"] == before + 1
     assert torch.equal(got, mg.plain_merl_lookup(tables, idx, SCALES, iz))
+
+
+@needs_cuda
+@pytest.mark.parametrize("with_iz", [False, True], ids=["eval", "evalp"])
+@pytest.mark.parametrize("m", [1, 2, 3, 5])
+def test_packed_lookup_matches_plain_bit_for_bit_on_gpu(m, with_iz):
+    """Above the crossover (N = 5003 > 0.453 P at P = 1000) the wrapper
+    takes the packed path; a ragged N, clipped indices and below-horizon
+    cells included."""
+    n = 5003
+    tables, idx, iz = lookup_inputs(m, n, seed=m, device=CUDA)
+    iz = iz if with_iz else None
+    assert mg.lookup_packs(m, n, 1000)
+    before = mg.LAUNCHES["merl_lookup"]
+    got = mg.kernel_merl_lookup(tables, idx, SCALES, iz)
+    torch.cuda.synchronize()
+    assert mg.LAUNCHES["merl_lookup"] == before + 1
+    want = mg.plain_merl_lookup(tables, idx, SCALES, iz)
+    assert torch.equal(got, want)
+    # the direct kernel gives the same bits
+    assert torch.equal(mg.launch_merl_lookup(tables, idx, SCALES, iz, False),
+                       want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("n", [1, 255, 257])
+def test_direct_lookup_at_small_n_on_gpu(n):
+    tables, idx, iz = lookup_inputs(3, n, seed=n, device=CUDA)
+    assert not mg.lookup_packs(3, n, 1000)
+    assert torch.equal(mg.kernel_merl_lookup(tables, idx, SCALES, iz),
+                       mg.plain_merl_lookup(tables, idx, SCALES, iz))
 
 
 @needs_cuda
