@@ -7,14 +7,15 @@ cross-check of the fit step, and rendering.
 
 ``--baseline DIR``: a checkout of another commit of the port (for
 example ``git archive REV | tar -x -C build/baseline``); phase 14 then
-times its MERL lookup and K4 against this checkout's, in turns.
+times its MERL lookup, K5, K6 and K4 against this checkout's, in turns.
 
 Phases, one line each; any failure raises and exits non-zero:
 
 0. device check (a CUDA card is required: there is no CPU fallback);
    prints ``nvidia-smi``'s name and power limit; TF32 off.
 1. build every kernel source (``dj_brdf_torch/csrc/*.cu``) from source
-   into ``build/dj_brdf_torch/``, one ``nvcc`` per source, in parallel;
+   into ``build/dj_brdf_torch/``, and phase 7's probes, one ``nvcc`` per
+   source, in parallel;
    beside them, count the f32 operations of one evaluation of each
    kernel in the SASS of these sources (``cuobjdump -sass``): the
    operation side of every fused-fit and K4 bound below.
@@ -34,15 +35,20 @@ Phases, one line each; any failure raises and exits non-zero:
 7. the MERL gather kernels against their plain versions, bit for bit:
    K5 (flat index) and K6 (row/lane index into the padded plane) at
    2^22 uniform-random indices into one uniform-random 1,458,000-entry
-   plane (``tools/gather_experiments.py``'s shapes), timed beside the
-   one PyTorch call that computes each (``plane[idx]``, ``plane2d[row,
-   lane]``); then the gather path itself, K5 and K6 in turn as that
-   script runs them.
+   plane (``tools/gather_experiments.py``'s shapes), timed in device time
+   beside the one PyTorch call that computes each (``plane[idx]``,
+   ``plane2d[row, lane]``); beside them the probes of the floors under
+   them (``PROBE_CU``: a coalesced copy of the index stream, random 4-B
+   loads through L2 on every SM and on half of them, random 4-B loads
+   over a 16-CTA cluster's shared memory, and both kinds at once); then
+   the gather path itself, K5 and K6 in turn as that script runs them.
 8. MERL targets -> fit: phase 3's 100 GGX+Schlick materials baked into
    100 MERL tables on the card (``io.synth.bake_merl``); the lookup
    against its plain version at M = 100 x N = 1,458,000 (phase 3's
-   directions), bit for bit, timed; each of its two paths (direct,
-   packed) at N = P/16, P/4 and P, bit for bit and timed in turns, with
+   directions), bit for bit, timed; a float64 bake through
+   ``merl_targets`` with no cast, equal to the table cast by hand; each
+   of its two paths (direct, packed) at N = P/16, P/4 and P, bit for
+   bit and timed in turns, with
    the L2 sectors per lookup and the kernel launches per call of each;
    ``tables.index_select(2, k)`` timed as a yardstick for the lookup's
    gather half; then ``merl_targets`` and ``fit_materials`` (GGX, 1000
@@ -73,12 +79,14 @@ Phases, one line each; any failure raises and exits non-zero:
    generic loop at res 128, spp 4.
 14. with ``--baseline DIR`` only, the A/B: the MERL lookup (at phase 8's
    shape by CUDA events, at the tabulation's and the path tracer's by
-   device time) and K4 (at phase 11's shape), each checkout's in a
-   process of its own, in turns (baseline, this, this, baseline), on
-   the same inputs made from the seed; through the public entry points
-   ``kernel_merl_lookup`` and ``kernel_ad_sums``, which both keep, so
-   any two commits of the port compare. The lookups must agree bit for
-   bit, K4 within phase 11's tolerances.
+   device time), K5 and K6 (at phase 7's shape, device time) and K4 (at
+   phase 11's shape), each checkout's in a process of its own, in turns
+   (baseline, this, this, baseline), on the same inputs made from the
+   seed; through the public entry points ``kernel_merl_lookup``,
+   ``kernel_gather_plane``, ``kernel_gather_rowlane`` and
+   ``kernel_ad_sums``, which both keep, so any two commits of the port
+   compare. The lookups and gathers must agree bit for bit (sha256 of
+   the outputs), K4 within phase 11's tolerances.
 
 Each main path (phases 3-5, the gather path of 7, 8, 9, 11 and the
 measured render of 13) runs with the launch counts of the wrappers set
@@ -223,6 +231,178 @@ extern "C" __global__ void count_ad_sample(const float* in, float* out) {
 """
 
 
+# Probes of the floors under K5 and K6 (phase 7), built in phase 1 beside
+# the kernel sources: a coalesced 16-B copy (the floor of an index stream
+# in and an output stream out, with no gather between); random 4-B loads
+# from a plane through L2 (one 32-B sector each), on every SM and on half
+# of them (one CTA an SM); random 4-B loads over a cluster's shared memory
+# (mode 0: any CTA of the cluster by ld.shared::cluster; 1: the own CTA
+# by the same instruction; 2: the own CTA by ld.shared); and the two
+# kinds at once, cluster loads by the first `split` warps of each CTA and
+# L2 loads by the others, against each kind alone. Addresses come from a
+# generator in registers, eight independent loads in flight per thread.
+PROBE_CU = r"""
+#include <cuda_runtime.h>
+#include <cstdint>
+
+__device__ __forceinline__ unsigned lcg(unsigned x) {
+  return x * 1664525u + 1013904223u;
+}
+
+__global__ void __launch_bounds__(256)
+copy_kernel(const int4* __restrict__ in, int4* __restrict__ out, long long n4) {
+  const long long stride = static_cast<long long>(gridDim.x) * 256;
+  for (long long j = blockIdx.x * 256LL + threadIdx.x; j < n4; j += stride)
+    __stcs(out + j, __ldcs(in + j));
+}
+
+__device__ __forceinline__ float l2_loads(const float* __restrict__ buf,
+                                          unsigned len, int steps,
+                                          unsigned t) {
+  unsigned x[8];
+  for (int u = 0; u < 8; ++u) x[u] = (t * 8u + u) * 2654435761u + 12345u;
+  float acc = 0.0f;
+  for (int s = 0; s < steps; ++s) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      x[u] = lcg(x[u]);
+      v[u] = __ldg(buf + __umulhi(x[u], len));
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc += v[u];
+  }
+  return acc;
+}
+
+__global__ void __launch_bounds__(1024)
+l2_random_kernel(const float* __restrict__ buf, unsigned len, int steps,
+                 float* __restrict__ sink) {
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  sink[t] = l2_loads(buf, len, steps, t);
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(1024, 1)
+dsmem_random_kernel(const float* __restrict__ buf, unsigned len,
+                    unsigned words, int steps, int mode, unsigned cluster,
+                    int split, int dsm, int l2, float* __restrict__ sink) {
+  extern __shared__ float held[];
+  for (unsigned w = threadIdx.x; w < words; w += 1024) held[w] = w;
+  cluster_sync();
+  unsigned rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(held));
+  const unsigned t = blockIdx.x * 1024 + threadIdx.x;
+  float acc = 0.0f;
+  if (static_cast<int>(threadIdx.x >> 5) >= split) {
+    if (l2) acc = l2_loads(buf, len, steps, t);
+  } else if (dsm) {
+    unsigned x[8];
+    for (int u = 0; u < 8; ++u) x[u] = (t * 8u + u) * 2654435761u + 777u;
+    for (int s = 0; s < steps; ++s) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        x[u] = lcg(x[u]);
+        const unsigned off = __umulhi(x[u] << 4, words);
+        if (mode == 2) {
+          v[u] = held[off];
+        } else {
+          uint32_t remote;
+          asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                       : "=r"(remote)
+                       : "r"(base + 4 * off),
+                         "r"(mode == 0 ? (x[u] >> 28) % cluster : rank));
+          asm volatile("ld.shared::cluster.f32 %0, [%1];"
+                       : "=f"(v[u]) : "r"(remote) : "memory");
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc += v[u];
+    }
+  }
+  cluster_sync();
+  sink[t] = acc;
+}
+
+static cudaLaunchConfig_t dsmem_config(int clusters, unsigned cluster,
+                                       unsigned words, cudaStream_t s,
+                                       cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * cluster, 1, 1);
+  cfg.blockDim = dim3(1024, 1, 1);
+  cfg.dynamicSmemBytes = words * 4;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+extern "C" {
+
+int probe_copy(const void* in, void* out, long long bytes, int blocks,
+               void* stream) {
+  copy_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(in), static_cast<int4*>(out), bytes / 16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `smem` bytes of shared memory a CTA: enough of it (over half an SM's)
+// holds each SM to one CTA
+int probe_l2_random(const void* buf, unsigned len, int steps, int blocks,
+                    int threads, int smem, void* sink, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      l2_random_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  l2_random_kernel<<<blocks, threads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(buf), len, steps, static_cast<float*>(sink));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int probe_dsmem_clusters(unsigned cluster, unsigned words, int* clusters) {
+  cudaError_t err = cudaFuncSetAttribute(
+      dsmem_random_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(dsmem_random_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             words * 4);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = dsmem_config(1, cluster, words, 0, &attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      clusters, dsmem_random_kernel, &cfg));
+}
+
+int probe_dsmem(const void* buf, unsigned len, unsigned cluster,
+                unsigned words, int steps, int mode, int split, int dsm,
+                int l2, int clusters, void* sink, void* stream) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = dsmem_config(
+      clusters, cluster, words, static_cast<cudaStream_t>(stream), &attr);
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, dsmem_random_kernel, static_cast<const float*>(buf), len, words,
+      steps, mode, cluster, split, dsm, l2, static_cast<float*>(sink));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}
+"""
+PROBE_CLUSTER = 16              # CTAs of the probed clusters
+PROBE_WORDS = 31 * 1024         # 4-B words of shared memory a probed CTA
+PROBE_SPLIT = 12                # warps of 32 that load over the cluster
+
+
 def log(msg):
     print(msg, flush=True)
 
@@ -339,6 +519,40 @@ def sass_ops(_build, procs):
     return out
 
 
+def start_probe_build(_build):
+    """Starts nvcc on PROBE_CU; returns the library's path and the
+    process."""
+    out = _build.BUILD_DIR / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    cu, lib = out / "gather_probe.cu", out / "libgather_probe.so"
+    cu.write_text(PROBE_CU)
+    return lib, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def probe_lib(lib, proc):
+    """The probe library of :func:`start_probe_build`, loaded, with its
+    C signatures declared."""
+    import ctypes
+
+    report, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the gather probes:\n{report}")
+    probe = ctypes.CDLL(str(lib))
+    ptr, i64, i32, u32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_uint)
+    probe.probe_copy.argtypes = [ptr, ptr, i64, i32, ptr]
+    probe.probe_l2_random.argtypes = [ptr, u32, i32, i32, i32, i32, ptr, ptr]
+    probe.probe_dsmem_clusters.argtypes = [u32, u32, ctypes.POINTER(i32)]
+    probe.probe_dsmem.argtypes = [ptr, u32, u32, u32, i32, i32, i32, i32, i32,
+                                  i32, ptr, ptr]
+    for fn in (probe.probe_copy, probe.probe_l2_random,
+               probe.probe_dsmem_clusters, probe.probe_dsmem):
+        fn.restype = ctypes.c_int
+    return probe
+
+
 def device_ms(fn, reps):
     """Device milliseconds of one ``fn()``: the summed durations of the
     kernels it launches (torch.profiler) over ``reps`` calls; for calls
@@ -453,7 +667,8 @@ def main(argv=None):
                         help="also write the full results to this JSON file")
     parser.add_argument("--baseline", default=None,
                         help="a checkout of another commit of the port to "
-                             "time the MERL lookup and K4 against (phase 14)")
+                             "time the MERL lookup, K5, K6 and K4 against "
+                             "(phase 14)")
     parser.add_argument("--ab-times", default=None, metavar="ROOT",
                         help=argparse.SUPPRESS)  # one process of phase 14
     args = parser.parse_args(argv)
@@ -487,11 +702,13 @@ def main(argv=None):
     # ---- phase 1: build every kernel source, one nvcc each, in parallel
     t0 = time.perf_counter()
     counting = start_sass_counts(_build)
+    probing = start_probe_build(_build)
     _build.build_all(["fused_fit", "merl_gather", "fused_fit_ad"])
     ff._lib()
     mg._lib()
     ff._lib_ad()
     ops = sass_ops(_build, counting)
+    probe = probe_lib(*probing)
     build_s = time.perf_counter() - t0
     regs = {name: [ln.strip() for ln in _build.ptxas_report(name).splitlines()
                    if "registers" in ln or "spill" in ln]
@@ -681,7 +898,7 @@ def main(argv=None):
             f"grid {sched.grid} CTAs, {sched.ctas_per_sm} resident per SM")
     results["timings"] = timings
 
-    gather = phase7_gathers(mg, ff, dgen, results)
+    gather = phase7_gathers(mg, ff, dgen, probe, results)
     tables = phase8_merl_fit(mg, ff, alphas, f0s, i, o, launches, results)
     ab, ag, lookup_launches = phase9_tabulate(mg, ff, tables, alphas, results)
     phase10_cli(tables, ab, ag, results)
@@ -769,9 +986,88 @@ def exact(name, got, want):
     return err
 
 
-def phase7_gathers(mg, ff, dgen, results):
-    """K5 and K6 against their plain versions at the shapes of
-    tools/gather_experiments.py, timed; then the gather path."""
+def phase7_probes(probe, plane, idx):
+    """The floors under K5 and K6, measured: a coalesced copy of the
+    index stream (16 MB in, 16 MB out: the traffic with no gather);
+    random 4-B loads from the plane through L2 (one 32-B sector each), on
+    every SM and on half of them; random 4-B loads over the shared memory
+    of 16-CTA clusters; and cluster loads and L2 loads by separate warps
+    at once, against each alone (whether the two rates add)."""
+    import ctypes
+
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def run(what, err):
+        if err != 0:
+            raise RuntimeError(f"phase 7 probe {what}: CUDA error {err}")
+
+    copied = torch.empty_like(idx)
+    copy_runs = [cuda_ms(lambda: run("copy", probe.probe_copy(
+        idx.data_ptr(), copied.data_ptr(), 4 * idx.numel(), sms * 8,
+        stream)), 20) for _ in range(2)]
+    if not torch.equal(copied, idx):
+        raise AssertionError("phase 7: the copy probe did not copy")
+    steps = 64
+    sink = torch.empty(sms * 2048, device="cuda")
+    l2 = {}
+    for label, blocks, threads, smem in (
+            ("all_sms", sms * 8, 256, 0),
+            ("half_the_sms", sms // 2, 1024, 120 * 1024)):
+        runs = [cuda_ms(lambda: run("l2", probe.probe_l2_random(
+            plane.data_ptr(), plane.numel(), steps, blocks, threads, smem,
+            sink.data_ptr(), stream)), 5) for _ in range(2)]
+        l2[label] = {"runs_ms": runs, "G_sectors_per_s":
+                     blocks * threads * steps * 8 / min(runs) / 1e6}
+    size, words = PROBE_CLUSTER, PROBE_WORDS
+    clusters = ctypes.c_int()
+    run("cluster query", probe.probe_dsmem_clusters(size, words,
+                                                   ctypes.byref(clusters)))
+    c, dsteps = clusters.value, 32
+    sink = torch.empty(c * size * 1024, device="cuda")
+
+    def dsmem_ms(mode, split, dsm, l2_on):
+        return min(cuda_ms(lambda: run("cluster", probe.probe_dsmem(
+            plane.data_ptr(), plane.numel(), size, words, dsteps, mode,
+            split, dsm, l2_on, c, sink.data_ptr(), stream)), 5)
+            for _ in range(2))
+
+    per_warp = c * size * 32 * dsteps * 8      # loads of one warp slot
+    dsmem = {}
+    for mode, label in ((0, "cluster_random"), (1, "own_cta_by_cluster_load"),
+                        (2, "own_cta_by_shared_load")):
+        ms = dsmem_ms(mode, 32, 1, 0)
+        dsmem[label] = {"ms": ms, "G_loads_per_s": 32 * per_warp / ms / 1e6}
+    alone_c = dsmem_ms(0, PROBE_SPLIT, 1, 0)
+    alone_l = dsmem_ms(0, PROBE_SPLIT, 0, 1)
+    both = dsmem_ms(0, PROBE_SPLIT, 1, 1)
+    split = {"cluster_warps": PROBE_SPLIT, "cluster_alone_ms": alone_c,
+             "l2_alone_ms": alone_l, "both_ms": both,
+             "both_G_loads_per_s": 32 * per_warp / both / 1e6}
+    out = {"copy_ms": min(copy_runs), "copy_runs_ms": copy_runs,
+           "copy_GB_per_s": 2 * 4 * idx.numel() / min(copy_runs) / 1e6,
+           "l2_random": l2,
+           "l2_random_G_sectors_per_s": l2["all_sms"]["G_sectors_per_s"],
+           "dsmem_clusters": c, "dsmem_bytes_per_cta": 4 * words,
+           "dsmem": dsmem, "split": split}
+    log(f"phase 7 probes (measured): coalesced copy of {4 * idx.numel()} B "
+        f"in and out {out['copy_ms']:.4f} ms ({out['copy_GB_per_s']:.1f} "
+        f"GB/s); random 4-B loads from the {4 * plane.numel()}-B plane "
+        f"through L2: {l2['all_sms']['G_sectors_per_s']:.1f} G sectors/s "
+        f"on {sms} SMs, {l2['half_the_sms']['G_sectors_per_s']:.1f} on "
+        f"{sms // 2}; over {c} {size}-CTA clusters of {4 * words} B a CTA: "
+        + ", ".join(f"{k} {v['G_loads_per_s']:.1f} G/s"
+                    for k, v in dsmem.items())
+        + f"; {PROBE_SPLIT} warps of 32 on cluster loads, the rest on L2: "
+        f"alone {alone_c:.4f} / {alone_l:.4f} ms, at once {both:.4f} ms "
+        f"({split['both_G_loads_per_s']:.1f} G loads/s in all)")
+    return out
+
+
+def phase7_gathers(mg, ff, dgen, probe, results):
+    """K5 and K6 against their plain versions and the library calls at
+    the shapes of tools/gather_experiments.py, bit for bit, timed in
+    turns; the probes of the floors under them; then the gather path."""
     plane = torch.rand(N_MERL, generator=dgen, device="cuda")
     idx = torch.randint(0, N_MERL, (N_GATHER,), generator=dgen,
                         device="cuda", dtype=torch.int32)
@@ -781,34 +1077,48 @@ def phase7_gathers(mg, ff, dgen, results):
     nbytes = 8 * N_GATHER + 4 * N_MERL     # index + value per lookup, plane
     # the plane entries this run's indices touch, each read once
     touched = int(idx.unique().numel())
-    for name, shape, kernel, plain, library, index_bytes in (
-            ("gather_plane", (N_MERL,),
+    probes = phase7_probes(probe, plane, idx)
+    for name, length, kernel, plain, library, index_bytes in (
+            ("gather_plane", N_MERL,
              lambda: mg.kernel_gather_plane(plane, idx),
              lambda: mg.plain_gather_plane(plane, idx),
              lambda: plane[idx], 4),
-            ("gather_rowlane", tuple(plane2d.shape),
+            ("gather_rowlane", plane2d.numel(),
              lambda: mg.kernel_gather_rowlane(plane2d, row, lane),
              lambda: mg.plain_gather_rowlane(plane2d, row, lane),
              lambda: plane2d[row, lane], 8)):
-        err = exact(name, kernel(), plain())
-        exact(f"{name} library call", library(), plain())
-        k_ms, p_ms, k_runs, p_runs = timed_pair(kernel, plain, 20, 5)
-        lib_runs = [cuda_ms(library, 20) for _ in range(2)]
-        lib_ms = min(lib_runs)
+        want = plain()
+        err = exact(name, kernel(), want)
+        exact(f"{name} library call", library(), want)
+        del want
+        # CUDA events over whole calls, in turns (plain, kernel, kernel,
+        # plain); then device time (torch.profiler: the kernels' own
+        # durations, without the launch gaps events see at this size), in
+        # the same turns, and the library call's: the kernels line's
+        e_ms, _, event_runs, _ = timed_pair(kernel, plain, 20, 5)
+        p_runs = [device_ms(plain, 5)]
+        k_runs = [device_ms(kernel, 20), device_ms(kernel, 20)]
+        p_runs.append(device_ms(plain, 5))
+        lib_runs = [device_ms(library, 20) for _ in range(2)]
+        k_ms, p_ms, lib_ms = min(k_runs), min(p_runs), min(lib_runs)
         b_ms, b_by = bound((index_bytes + 4) * N_GATHER + 4 * touched, 0)
         out[name] = {"max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
                      "kernel_runs_ms": k_runs, "plain_runs_ms": p_runs,
+                     "events_runs_ms": event_runs,
                      "library_ms": lib_ms, "library_runs_ms": lib_runs,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "lookups_per_s": N_GATHER / (k_ms * 1e-3),
                      "GB_per_s": nbytes / k_ms / 1e6}
-        log(f"phase 7 {name} N={N_GATHER} into {shape}: bit for bit (max "
-            f"abs err {err}); kernel {k_ms:.4f} ms "
-            f"({N_GATHER / (k_ms * 1e-3):.4g} lookups/s, "
-            f"{nbytes / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms, one "
-            f"PyTorch call {lib_ms:.4f} ms; bound {b_ms:.4f} ms (set by "
-            f"{b_by}, {touched} plane entries touched), {b_ms / k_ms:.1%} "
-            "of it")
+        log(f"phase 7 {name} N={N_GATHER} into {length} entries (one "
+            f"kernel path, through L2): bit for bit (max abs err {err}); "
+            f"kernel {k_ms:.4f} ms device time "
+            f"({N_GATHER / (k_ms * 1e-3):.4g} lookups/s; CUDA events over "
+            f"20 calls {e_ms:.4f} ms); plain {p_ms:.4f} ms, one "
+            f"PyTorch call {lib_ms:.4f} ms; coalesced-copy floor "
+            f"{probes['copy_ms']:.4f} ms, random-sector floor "
+            f"{N_GATHER / probes['l2_random_G_sectors_per_s'] / 1e6:.4f} ms; "
+            f"bound {b_ms:.4f} ms (set by {b_by}, {touched} plane entries "
+            f"touched), {b_ms / k_ms:.1%} of it")
 
     # the gather path: K5, then K6, GATHER_ITERS times each
     reset_counts(mg, ff)
@@ -824,6 +1134,7 @@ def phase7_gathers(mg, ff, dgen, results):
                                  f"{mg.LAUNCHES[name]} times for "
                                  f"{GATHER_ITERS} gathers")
     log(f"phase 7 gather path: launches {dict(mg.LAUNCHES)}")
+    out["probes"] = probes
     results["gathers"] = out
     return out
 
@@ -903,13 +1214,15 @@ def phase8_merl_fit(mg, ff, alphas, f0s, i, o, launches, results):
     from dj_brdf_torch.microfacet.params import MicrofacetParams
     from dj_brdf_torch.models import merl as merl_mod
 
+    def eval_fn(k):
+        return lambda ii, oo: brdf.eval(
+            GGX(), fresnel.Schlick(f0=f0s[k]),
+            MicrofacetParams.isotropic(alphas[k]), ii, oo)
+
     t0 = time.perf_counter()
     tables = torch.empty((M_MERL, 3, 90, 90, 180), device="cuda")
     for k in range(M_MERL):
-        def eval_fn(ii, oo, a=alphas[k], f0=f0s[k]):
-            return brdf.eval(GGX(), fresnel.Schlick(f0=f0),
-                             MicrofacetParams.isotropic(a), ii, oo)
-        tables[k] = bake_merl(eval_fn, device="cuda")
+        tables[k] = bake_merl(eval_fn(k), device="cuda")  # cast to f32 here
     torch.cuda.synchronize()
     bake_s = time.perf_counter() - t0
     below = float((tables[:, 0] < 0).float().mean())
@@ -959,6 +1272,19 @@ def phase8_merl_fit(mg, ff, alphas, f0s, i, o, launches, results):
     log(f"phase 8 yardstick for the lookup's gather half (not the lookup: "
         f"no scale, horizon or cosine, (M, 3, N) out): tables.index_select("
         f"2, k) {min(lookup['index_select_ms']):.4f} ms")
+
+    # the no-cast path: a float64 bake into merl_targets as it comes; the
+    # table takes float32 where it enters, as the cast above made it
+    raw64 = bake_merl(eval_fn(0), device="cuda")
+    got = merl_targets(raw64[None], i, o)
+    if not (raw64.dtype == torch.float64 and got.dtype == torch.float32
+            and torch.equal(got, merl_targets(tables[:1], i, o))):
+        raise AssertionError("phase 8: merl_targets of a float64 bake "
+                             "differs from that of the table cast by hand")
+    log(f"phase 8 merl_targets of a {raw64.dtype} bake, no cast: "
+        f"{got.dtype} targets, equal bit for bit to those of the table "
+        "cast to float32 by hand")
+    del raw64, got
 
     # the main path: MERL targets -> fit_materials
     torch.cuda.synchronize()
@@ -1415,8 +1741,9 @@ def phase13_pathtrace(mg, ff, tables, results):
 
 
 def ab_times(root, seed):
-    """One process of phase 14: the MERL lookup at ``AB_LOOKUPS`` and K4
-    at N = 2^23 + 1000, of the ``dj_brdf_torch`` in the checkout
+    """One process of phase 14: the MERL lookup at ``AB_LOOKUPS``, K5 and
+    K6 at phase 7's shape and K4 at N = 2^23 + 1000, of the
+    ``dj_brdf_torch`` in the checkout
     ``root``, through its public entry points, on inputs made on the card
     from ``seed`` (random tables with below-horizon entries, phase 8's
     and phase 11's directions); the better of two timings of each, a
@@ -1455,6 +1782,20 @@ def ab_times(root, seed):
               for _ in range(2)]
         out["lookup"][f"M{m}_N{n}"] = {"ms": min(ms), "sha256": digest}
     del tables
+    plane = torch.rand(N_MERL, generator=dgen, device="cuda")
+    gidx = torch.randint(0, N_MERL, (N_GATHER,), generator=dgen,
+                         device="cuda", dtype=torch.int32)
+    plane2d = mg.pad_plane(plane)
+    row, lane = mg.row_lane(gidx)
+    out["gathers"] = {}
+    for name, fn in (
+            ("gather_plane", lambda: mg.kernel_gather_plane(plane, gidx)),
+            ("gather_rowlane",
+             lambda: mg.kernel_gather_rowlane(plane2d, row, lane))):
+        digest = hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest()
+        ms = [device_ms(fn, 20) for _ in range(2)]
+        out["gathers"][name] = {"ms": min(ms), "sha256": digest}
+    del plane, plane2d
     i, o = sample_direction_set(N_RAGGED, dgen, "cuda")
     dirs = tuple(c.contiguous() for c in soa.split_dirs(i, o))
     tgts = tuple(t.contiguous() for t in soa.ggx_evalp_soa(
@@ -1471,8 +1812,8 @@ def ab_times(root, seed):
 
 
 def phase14_ab(baseline, seed, results):
-    """The MERL lookup and K4 of this checkout against those of the
-    checkout ``baseline``, each in processes of its own, in turns."""
+    """The MERL lookup, K5, K6 and K4 of this checkout against those of
+    the checkout ``baseline``, each in processes of its own, in turns."""
     if baseline is None:
         log("phase 14 A/B: not run (no --baseline)")
         return
@@ -1502,6 +1843,18 @@ def phase14_ab(baseline, seed, results):
             f"({'CUDA events' if key.endswith(str(N_MERL)) else 'device time'}"
             f"): baseline {b} ms, this {t} ms, this/baseline "
             f"{min(t) / min(b):.4f}; bit for bit")
+    out["gathers"] = {}
+    for key in runs[0]["gathers"]:
+        if len({r["gathers"][key]["sha256"] for r in runs}) != 1:
+            raise AssertionError(f"phase 14: {key} of the two checkouts "
+                                 "differ")
+        b = [r["gathers"][key]["ms"] for r in base]
+        t = [r["gathers"][key]["ms"] for r in this]
+        out["gathers"][key] = {"baseline_runs_ms": b, "current_runs_ms": t,
+                               "current_over_baseline": min(t) / min(b)}
+        log(f"phase 14 A/B {key} N={N_GATHER} (device time): baseline {b} "
+            f"ms, this {t} ms, this/baseline {min(t) / min(b):.4f}; bit for "
+            "bit")
     a = torch.tensor(base[0]["k4"]["sums"], dtype=torch.float64)
     c = torch.tensor(this[0]["k4"]["sums"], dtype=torch.float64)
     if not (abs(float(a[0] - c[0])) <= LOSS_RTOL_AD * abs(float(a[0]))

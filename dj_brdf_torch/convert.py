@@ -86,8 +86,8 @@ def tabular_to_numpy(dist: Tabular) -> dict:
 
 
 def merl_from_jax(merl, device=None) -> Merl:
-    """JAX ``Merl`` (its table as numpy) -> the port's, keeping the
-    table's dtype."""
+    """JAX ``Merl`` (its table as numpy) -> the port's; the table takes
+    ``config.default_float()``, as ``Merl`` says."""
     return Merl(table=torch.as_tensor(np.array(_get(merl, "table")),
                                       device=device))
 

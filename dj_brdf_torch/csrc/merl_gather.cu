@@ -246,28 +246,47 @@ lookup_packed_kernel(const float4* __restrict__ rec,
   }
 }
 
-__global__ void __launch_bounds__(kBlock)
-gather_plane_kernel(const float* __restrict__ plane, long long len,
-                    const int* __restrict__ idx, long long n,
-                    float* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * kBlock;
-  for (long long j = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
-       j < n; j += stride) {
-    out[j] = __ldg(plane + clip(idx[j], len - 1));
-  }
-}
+// K5 and K6: one kernel, two index policies, each turning a position
+// into a flat clipped index as the plain versions clip it (per
+// coordinate for K6). What bounds them on an H100 at the gather script's
+// shapes (2^22 uniform indices into a 1,458,000-entry plane): the card
+// serves random 4-B entries from L2 at ~137 G sectors/s in all, a rate
+// half of its SMs already reach, so the gathers alone take ~0.031 ms
+// (chip_smoke.py phase 7's probes). Designs measured and not kept, each
+// no faster than this one (scripts/gather_designs.py): a persistent grid
+// with 16-B index loads and eight gathers in flight a thread; a share of
+// the plane held in the shared memory of thread-block clusters, its
+// lookups mixed into the same warps or handed to helper warps. Loads
+// over a cluster share the L2 loads' rate rather than add to it.
+struct FlatIndex {  // K5: clip(idx[j])
+  const int* idx;
+  long long hi;  // plane length - 1
 
+  __device__ __forceinline__ long long at(long long j) const {
+    return clip(__ldg(idx + j), hi);
+  }
+};
+
+struct RowLaneIndex {  // K6: clip(row[j]) * lanes + clip(lane[j])
+  const int* row;
+  const int* lane;
+  int rows;
+  int lanes;
+
+  __device__ __forceinline__ long long at(long long j) const {
+    return clip(__ldg(row + j), rows - 1) * lanes +
+           clip(__ldg(lane + j), lanes - 1);
+  }
+};
+
+template <class Index>
 __global__ void __launch_bounds__(kBlock)
-gather_rowlane_kernel(const float* __restrict__ plane2d, int rows, int lanes,
-                      const int* __restrict__ row,
-                      const int* __restrict__ lane, long long n,
-                      float* __restrict__ out) {
+gather_kernel(const float* __restrict__ plane, Index ix, long long n,
+              float* __restrict__ out) {
   const long long stride = static_cast<long long>(gridDim.x) * kBlock;
   for (long long j = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
        j < n; j += stride) {
-    const long long r = clip(row[j], rows - 1);
-    const long long l = clip(lane[j], lanes - 1);
-    out[j] = __ldg(plane2d + r * lanes + l);
+    out[j] = __ldg(plane + ix.at(j));
   }
 }
 
@@ -350,9 +369,10 @@ int djbt_gather_plane(int device, const void* plane, long long len,
                       const void* idx, long long n, void* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gather_plane_kernel<<<blocks_for(n), kBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(plane), len, static_cast<const int*>(idx), n,
+  gather_kernel<<<blocks_for(n), kBlock, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(plane),
+      FlatIndex{static_cast<const int*>(idx), len - 1}, n,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
@@ -363,11 +383,12 @@ int djbt_gather_rowlane(int device, const void* plane2d, int rows, int lanes,
                         void* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gather_rowlane_kernel<<<blocks_for(n), kBlock, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(plane2d), rows, lanes,
-      static_cast<const int*>(row), static_cast<const int*>(lane), n,
-      static_cast<float*>(out));
+  gather_kernel<<<blocks_for(n), kBlock, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(plane2d),
+      RowLaneIndex{static_cast<const int*>(row),
+                   static_cast<const int*>(lane), rows, lanes},
+      n, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from dj_brdf_torch.config import default_float
 from dj_brdf_torch.core.math import from_spherical
 from dj_brdf_torch.fit import lsq
 from dj_brdf_torch.microfacet import brdf as mf
@@ -49,7 +50,9 @@ def sample_direction_set(n: int, generator: torch.Generator,
 def merl_targets(tables, i, o):
     """Evaluate a stack of MERL tables at the direction set:
     (M, 3, 90, 90, 180) -> (M, N, 3) of f_r cos(theta_i), for
-    :func:`fit_materials`."""
+    :func:`fit_materials`. The tables take ``config.default_float()``
+    (see :class:`Merl`): a float64 stack gives float32 targets, as in
+    the JAX package."""
     return Merl(table=tables).evalp(i, o)
 
 
@@ -74,7 +77,7 @@ def tabulate_merl_batch(tables, res: int = 90, shadow: bool = True,
         raise NotImplementedError(
             "tabulate_merl_batch: sharding over a device mesh is not "
             "ported yet")
-    dists, fres = build_tabular(Merl(table=torch.as_tensor(tables)), res,
+    dists, fres = build_tabular(Merl(table=tables), res,
                                 shadow)
     ab = moments.fit_beckmann_parameters(dists).ax
     ag = moments.fit_ggx_parameters(dists).ax
@@ -92,6 +95,12 @@ def fit_materials(targets, i, o, steps: int = 300, lr: float = 5e-2,
     minimises the mean loss over materials, whose gradient separates
     per material.
 
+    ``targets``, ``i`` and ``o`` take ``config.default_float()``, as the
+    JAX package's arrays do: float64 data is fitted in float32. Under
+    ``config.use_x64()`` they stay float64, which the fused fit step
+    does not take: it raises a ``TypeError`` naming ``use_x64`` (the JAX
+    package's ``fit_materials`` fails under x64 as well).
+
     Returns ``(params, fresnel, losses)`` with (M,)-leaved params, (M, 3)
     f0 and the (M,) per-material losses of the last step."""
     if fused not in ("auto", "never"):
@@ -99,6 +108,7 @@ def fit_materials(targets, i, o, steps: int = 300, lr: float = 5e-2,
     if mesh is not None:
         raise NotImplementedError(
             "fit_materials: sharding over a device mesh is not ported yet")
+    targets, i, o = (t.to(default_float()) for t in (targets, i, o))
 
     m = targets.shape[0]
     raw0 = lsq.RawFit(*(leaf.expand((m,) + leaf.shape).clone()

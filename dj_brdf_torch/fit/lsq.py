@@ -21,6 +21,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from dj_brdf_torch import fresnel as fresnel_mod
+from dj_brdf_torch.config import default_float
 from dj_brdf_torch.microfacet import brdf as mf
 from dj_brdf_torch.microfacet.ndf import GGX, Beckmann
 from dj_brdf_torch.microfacet.params import MicrofacetParams
@@ -157,10 +158,15 @@ def fit_lsq(dist, i, o, target, steps: int = 200, lr: float = 5e-2,
     the layered autograd path (other distributions always use it).
     Runs on the device of ``i``.
 
+    ``i``, ``o`` and ``target`` take ``config.default_float()``, as in
+    :func:`~dj_brdf_torch.fit.batch.fit_materials` (under
+    ``config.use_x64()`` the fused step raises).
+
     Returns (params, fresnel, losses) with ``losses`` of shape
     ``(steps,)``."""
     if fused not in ("auto", "never"):
         raise ValueError(f"fused must be auto|never, got {fused!r}")
+    i, o, target = (t.to(default_float()) for t in (i, o, target))
     raw = init if init is not None else raw_init(device=i.device)
 
     family = fused_eligible(dist, shadow)

@@ -30,6 +30,7 @@ import math
 
 import torch
 
+from dj_brdf_torch import config
 from dj_brdf_torch.config import logger
 from dj_brdf_torch.core.pytree import pytree_dataclass
 from dj_brdf_torch.ops import merl_gather
@@ -136,9 +137,26 @@ def _debug_below_horizon(tables, idx) -> None:
 class Merl:
     """MERL table BRDF. ``table``: (3, 90, 90, 180) raw (unscaled)
     samples, channel-major like the binary file, or a stack
-    (*B, 3, 90, 90, 180) of such tables."""
+    (*B, 3, 90, 90, 180) of such tables.
+
+    The table takes :func:`~dj_brdf_torch.config.default_float` where it
+    enters, once (the JAX package's ``Merl`` does the same when its
+    numpy table becomes a ``jnp`` array): a float64 ``bake_merl`` or
+    file table is looked up in float32, and evaluates to float32.
+    Under :func:`~dj_brdf_torch.config.use_x64` it stays float64: on the
+    CPU the lookup then runs in float64, as the JAX package's does under
+    x64; on the card it raises a ``TypeError`` that names ``use_x64``,
+    since the lookup kernels are float32 only.
+
+    Gradients w.r.t. the table: on CPU tensors the lookup is plain
+    PyTorch and differentiates like JAX's ``jnp.take``; the card's
+    kernels have no backward and refuse a table that requires grad."""
 
     table: torch.Tensor
+
+    def __post_init__(self):
+        table = torch.as_tensor(self.table)
+        object.__setattr__(self, "table", table.to(config.default_float()))
 
     def _lookup(self, i, o, iz_of=None):
         if tuple(self.table.shape[-4:]) != TABLE_SHAPE:

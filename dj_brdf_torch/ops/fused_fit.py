@@ -218,7 +218,11 @@ def _check(pvecs, dirs, tgts, family):
         raise ValueError("fused fit: all tensors must be on one device, got "
                          f"{sorted({str(t.device) for t in tensors})}")
     if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("fused fit: all tensors must be float32")
+        raise TypeError(
+            "fused fit: all tensors must be float32, got "
+            f"{sorted({str(t.dtype) for t in tensors})}; the fit takes "
+            "config.default_float(), which config.use_x64() makes float64 "
+            "(the JAX package's fit fails under x64 as well)")
     m = pvecs.shape[0]
     n = dirs[0].shape[-1]
     if pvecs.shape != (m, 8) or m == 0:

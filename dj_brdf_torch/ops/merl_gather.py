@@ -14,9 +14,10 @@ never reaches a plain version: the kernel runs, or the call raises.
   card it takes one of two kernel paths, chosen by :func:`lookup_packs`:
   the direct kernel, or mark, pack and look up for large N.
 * :func:`gather_plane` — ``plane[idx]`` from one channel plane (``k4``
-  itself).
+  itself, K5).
 * :func:`gather_rowlane` — ``plane2d[row, lane]`` from the plane padded
-  to ``(rows, 128)`` (``k5`` of the same script).
+  to ``(rows, 128)`` (``k5`` of the same script, K6). K5 and K6 are one
+  kernel template with two index policies.
 
 Indices are clipped into range (``jnp.take``'s ``mode="clip"``). The
 kernels and the plain versions do the same f32 multiplies in the same
@@ -130,12 +131,19 @@ def _kernel_ready(name, tensors, ints=(), floats=()):
     if any(t.dtype != torch.int32 for t in ints):
         raise TypeError(f"{name} kernel: indices must be int32")
     if any(t.dtype != torch.float32 for t in floats):
-        raise TypeError(f"{name} kernel: tables and values must be float32")
+        raise TypeError(
+            f"{name} kernel: tables and values must be float32, got "
+            f"{sorted({str(t.dtype) for t in floats})}; a Merl table takes "
+            "config.default_float(), which config.use_x64() makes float64: "
+            "the card's kernels are float32 only, so under use_x64 look up "
+            "on CPU tensors")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} kernel: every tensor must be contiguous")
     if any(t.requires_grad for t in tensors):
-        raise ValueError(f"{name} kernel computes no gradient; detach the "
-                         "inputs or use CPU tensors")
+        raise ValueError(
+            f"{name} kernel has no backward: on the card there is no "
+            "gradient w.r.t. the table (the CPU path has one, as JAX's "
+            "jnp.take does); detach the inputs or use CPU tensors")
 
 
 def _launch(name, fn, device, *args):
@@ -214,7 +222,12 @@ def merl_lookup(tables, idx, scales, iz=None):
     channels 0 where any is negative, times ``iz[n]`` when given.
     ``tables`` (M, 3, P) raw MERL planes, ``idx`` (N,) flat indices
     shared by all M tables. The kernel on CUDA tensors, the plain
-    version on CPU tensors."""
+    version on CPU tensors.
+
+    Only the plain version has a backward (autograd of the gather, the
+    counterpart of ``jax.grad`` through ``jnp.take``): on the card the
+    tables must be float32 and must not require grad, or the call
+    raises (see :class:`~dj_brdf_torch.models.merl.Merl` for dtypes)."""
     if tables.device.type == "cpu":
         return plain_merl_lookup(tables, idx, scales, iz)
     return kernel_merl_lookup(tables, idx, scales, iz)

@@ -196,6 +196,39 @@ def test_build_names_the_gather_library_by_source():
     assert (_build.CSRC / "merl_gather.cu").exists()
 
 
+def gather_inputs(n, length, gen, device, offset=1):
+    """A plane of ``length`` entries, flat indices (n,) and row/lane
+    pairs (n,) into its padded form, out of range on every side, each
+    read from ``offset`` entries into a larger tensor (offset 1: not
+    16-B aligned)."""
+    plane = torch.rand(length, generator=gen, device=device)
+    rows = -(-length // mg.LANES)
+    idx = torch.randint(-length - 3, 2 * length + 3, (n + offset,),
+                        generator=gen, device=device, dtype=torch.int32)
+    row = torch.randint(-2, rows + 2, (n + offset,), generator=gen,
+                        device=device, dtype=torch.int32)
+    lane = torch.randint(-3, mg.LANES + 3, (n + 2 * offset,), generator=gen,
+                         device=device, dtype=torch.int32)
+    return (plane, idx[offset:], row[offset:], lane[2 * offset:])
+
+
+@pytest.mark.parametrize("n", [1, 3, 255, 257])
+def test_plain_gathers_clip_each_coordinate(n):
+    """The plain versions the kernels are held to, at the GPU test's
+    ragged n: every index clipped into the plane, row and lane each into
+    their own range."""
+    gen = torch.Generator().manual_seed(n)
+    plane, idx, row, lane = gather_inputs(n, 1000, gen, "cpu")
+    want = plane.numpy()[np.clip(idx.numpy(), 0, 999)]
+    np.testing.assert_array_equal(mg.plain_gather_plane(plane, idx).numpy(),
+                                  want)
+    plane2d = mg.pad_plane(plane).numpy()
+    want2 = plane2d[np.clip(row.numpy(), 0, plane2d.shape[0] - 1),
+                    np.clip(lane.numpy(), 0, mg.LANES - 1)]
+    got2 = mg.plain_gather_rowlane(mg.pad_plane(plane), row, lane)
+    np.testing.assert_array_equal(got2.numpy(), want2)
+
+
 @needs_cuda
 @pytest.mark.parametrize("with_iz", [False, True], ids=["eval", "evalp"])
 @pytest.mark.parametrize("n", [1, 255, 257, 5000])
@@ -259,6 +292,25 @@ def test_gather_kernels_match_plain_bit_for_bit_on_gpu():
 
 
 @needs_cuda
+@pytest.mark.parametrize("n", [1, 3, 255, 257, 2 ** 22 + 3])
+@pytest.mark.parametrize("length", [1, 1000, tm.PLANE, 2 ** 24 + 1])
+def test_plane_gathers_bit_for_bit_on_gpu(n, length):
+    """K5 and K6 against their plain versions at ragged n, from planes
+    of one entry to larger than L2: indices read from offset 1 (not 16-B
+    aligned), negative and out-of-range indices on each axis, and lane at
+    another offset than row."""
+    gen = torch.Generator(device=CUDA).manual_seed(n + length)
+    plane, idx, row, lane = gather_inputs(n, length, gen, CUDA)
+    assert idx.data_ptr() % 16 != 0
+    assert torch.equal(mg.kernel_gather_plane(plane, idx),
+                       mg.plain_gather_plane(plane, idx))
+    plane2d = mg.pad_plane(plane)
+    for r, l in ((row, lane), (row.contiguous(), lane.contiguous())):
+        assert torch.equal(mg.kernel_gather_rowlane(plane2d, r, l),
+                           mg.plain_gather_rowlane(plane2d, r, l))
+
+
+@needs_cuda
 def test_lookup_kernel_refuses_strided_and_grad_tensors_on_gpu():
     tables, idx, iz = lookup_inputs(2, 100, device=CUDA)
     strided = torch.stack([idx, idx], -1)[:, 0]
@@ -295,19 +347,11 @@ def test_merl_targets_on_gpu_go_through_the_kernel():
 def test_tabulate_merl_batch_on_gpu_matches_cpu():
     """The tabulation on the card (lookups through the kernel) against
     the CPU path on the same tables: alphas rtol 1e-4."""
-    from dj_brdf_torch import fresnel
     from dj_brdf_torch.fit.batch import tabulate_merl_batch
     from dj_brdf_torch.io.synth import bake_merl
-    from dj_brdf_torch.microfacet import brdf
-    from dj_brdf_torch.microfacet.ndf import GGX
-    from dj_brdf_torch.microfacet.params import MicrofacetParams
 
-    f0 = torch.tensor([0.9, 0.6, 0.3], device=CUDA)
-    tables = torch.stack([bake_merl(
-        lambda i, o, a=a: brdf.eval(
-            GGX(), fresnel.Schlick(f0=f0),
-            MicrofacetParams.isotropic(torch.tensor(a, device=CUDA)), i, o),
-        device=CUDA).float() for a in (0.15, 0.4)])
+    tables = torch.stack([bake_merl(ggx_eval_fn(a, CUDA), device=CUDA).float()
+                          for a in (0.15, 0.4)])
     before = mg.LAUNCHES["merl_lookup"]
     _, fres_pts, ab, ag = tabulate_merl_batch(tables, 24)
     torch.cuda.synchronize()
@@ -316,3 +360,60 @@ def test_tabulate_merl_batch_on_gpu_matches_cpu():
     torch.testing.assert_close(ab.cpu(), cab, rtol=1e-4, atol=0)
     torch.testing.assert_close(ag.cpu(), cag, rtol=1e-4, atol=0)
     torch.testing.assert_close(fres_pts.cpu(), cf, rtol=1e-4, atol=1e-5)
+
+
+def ggx_eval_fn(alpha, device):
+    from dj_brdf_torch import fresnel
+    from dj_brdf_torch.microfacet import brdf
+    from dj_brdf_torch.microfacet.ndf import GGX
+    from dj_brdf_torch.microfacet.params import MicrofacetParams
+
+    f0 = torch.tensor([0.9, 0.6, 0.3], device=device)
+    params = MicrofacetParams.isotropic(torch.tensor(alpha, device=device))
+    return lambda i, o: brdf.eval(GGX(), fresnel.Schlick(f0=f0), params, i, o)
+
+
+@needs_cuda
+def test_float64_bake_goes_through_targets_and_fit_on_gpu():
+    """bake -> merl_targets -> fit_materials on the card with no cast: a
+    float64 stack gives float32 targets, bit for bit those of the stack
+    cast by hand, and the fit runs through the fused kernel."""
+    from dj_brdf_torch.fit.batch import (fit_materials, merl_targets,
+                                         sample_direction_set)
+    from dj_brdf_torch.io.synth import bake_merl
+
+    tables = torch.stack([bake_merl(ggx_eval_fn(a, CUDA), device=CUDA)
+                          for a in (0.2, 0.4)])
+    assert tables.dtype == torch.float64
+    gen = torch.Generator(device=CUDA).manual_seed(1)
+    i, o = sample_direction_set(4096, gen, CUDA)
+    before = mg.LAUNCHES["merl_lookup"]
+    targets = merl_targets(tables, i, o)
+    assert targets.dtype == torch.float32
+    assert mg.LAUNCHES["merl_lookup"] == before + 1
+    assert torch.equal(targets, merl_targets(tables.float(), i, o))
+    params, fres, losses = fit_materials(targets, i, o, steps=20)
+    torch.cuda.synchronize()
+    assert losses.dtype == torch.float32 and torch.isfinite(losses).all()
+    assert torch.isfinite(params.ax).all() and torch.isfinite(fres.f0).all()
+
+
+@needs_cuda
+def test_use_x64_on_the_card_raises_naming_it():
+    """Under config.use_x64() a Merl table is float64, which the card's
+    float32 lookup does not take: a TypeError that names use_x64, never a
+    silent cast."""
+    from dj_brdf_torch import config
+    from dj_brdf_torch.fit.batch import sample_direction_set
+
+    gen = torch.Generator(device=CUDA).manual_seed(2)
+    table = torch.rand((3, 90, 90, 180), generator=gen, device=CUDA)
+    i, o = sample_direction_set(256, gen, CUDA)
+    config.use_x64(True)
+    try:
+        model = tm.Merl(table=table)
+        assert model.table.dtype == torch.float64
+        with pytest.raises(TypeError, match="use_x64"):
+            model.eval(i, o)
+    finally:
+        config.use_x64(False)

@@ -5,6 +5,7 @@ targets."""
 
 import logging
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from dj_brdf_torch import config, convert
 from dj_brdf_torch import fresnel as tfres
 from dj_brdf_torch.core import math as tcm
 from dj_brdf_torch.fit import batch as tbatch
+from dj_brdf_torch.fit import lsq as tlsq
 from dj_brdf_torch.fit import tabular as ttab
 from dj_brdf_torch.io import merl_io as tio
 from dj_brdf_torch.io import synth as tsynth
@@ -313,3 +315,119 @@ def test_lookup_stays_off_the_kernel_counter_on_cpu(baked):
     i, o = (torch.from_numpy(hemi_dirs(rng, 100)) for _ in range(2))
     tbatch.merl_targets(torch.from_numpy(baked), i, o)
     assert mg.LAUNCHES == before
+
+
+def same_index(ti, to, ji, jo):
+    return (tmerl.merl_flat_index(ti, to).numpy()
+            == np.asarray(jmerl.merl_flat_index(ji, jo)))
+
+
+@pytest.fixture(scope="module")
+def baked64():
+    """float64 bakes of the same two materials by each package (those of
+    test_bake_merl_matches_jax): JAX's numpy table and the port's
+    tensor, neither cast."""
+    kds = (None, (0.2, 0.1, 0.05))
+    jt = np.stack([jsynth.bake_merl(jax_ggx(0.3, kd=kd)) for kd in kds])
+    tt = torch.stack([tsynth.bake_merl(torch_ggx(0.3, kd=kd), "cpu")
+                      for kd in kds])
+    assert jt.dtype == np.float64 and tt.dtype == torch.float64
+    return jt, tt
+
+
+def test_float64_bake_goes_through_targets_and_fit_without_a_cast(baked64):
+    """bake -> merl_targets -> fit_materials on float64 stacks: the
+    targets are float32 as JAX's are; from JAX's own table they equal
+    JAX's bit for bit where the indices agree, from the port's bake at
+    test_bake_merl_matches_jax's tolerance (rtol 1e-4); the fit runs
+    and agrees with JAX's as test_fit_materials_on_merl_targets_matches_jax
+    holds it (rtol 1e-3)."""
+    jt, tt = baked64
+    rng = np.random.default_rng(10)
+    i, o = hemi_dirs(rng, 2048, 0.03, 1.5), hemi_dirs(rng, 2048, 0.03, 1.5)
+    (ji, jo), (ti, to) = both(i, o)
+    want = jbatch.merl_targets(jt, ji, jo)
+    got = tbatch.merl_targets(tt, ti, to)
+    assert want.dtype == jnp.float32 and got.dtype == torch.float32
+    same = same_index(ti, to, ji, jo)
+    assert same.mean() >= 1 - INDEX_MISMATCH
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy()[:, same], want[:, same],
+                               rtol=1e-4, atol=1e-6)
+    from_jax = tbatch.merl_targets(torch.from_numpy(jt), ti, to).numpy()
+    np.testing.assert_array_equal(from_jax[:, same], want[:, same])
+
+    jp, _, jl = jbatch.fit_materials(jnp.asarray(want), ji, jo, steps=30)
+    tp, tf, tl = tbatch.fit_materials(got, ti, to, steps=30)
+    assert tl.dtype == torch.float32 and torch.isfinite(tl).all()
+    assert torch.isfinite(tf.f0).all()
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-3)
+    np.testing.assert_allclose(tp.ax.numpy(), np.asarray(jp.ax), rtol=1e-3)
+    # fit_lsq takes the same float64 data as well
+    _, _, losses = tlsq.fit_lsq(tndf.GGX(), ti.double(), to.double(),
+                                tt_targets(tt, ti, to), steps=3)
+    assert losses.dtype == torch.float32 and torch.isfinite(losses).all()
+
+
+def tt_targets(tt, ti, to):
+    """Table 0's targets in float64, as a caller might hand them over."""
+    return tbatch.merl_targets(tt[:1], ti, to)[0].double()
+
+
+@pytest.fixture
+def x64():
+    """Both packages in float64 (JAX's x64, the port's use_x64), undone
+    after the test."""
+    jax.config.update("jax_enable_x64", True)
+    config.use_x64(True)
+    try:
+        yield
+    finally:
+        config.use_x64(False)
+        jax.config.update("jax_enable_x64", False)
+
+
+def test_use_x64_keeps_merl_in_float64_on_the_cpu(baked64, x64):
+    """Under x64 the JAX package looks the table up in float64 and its
+    fit_materials fails; the port does both the same way on the CPU: a
+    float64 lookup equal to JAX's where the indices agree, and a fit
+    that raises a TypeError naming use_x64."""
+    jt, tt = baked64
+    rng = np.random.default_rng(11)
+    (ji, jo), (ti, to) = both(hemi_dirs(rng, 1024, 0.03, 1.5),
+                              hemi_dirs(rng, 1024, 0.03, 1.5))
+    want = jbatch.merl_targets(jt, ji, jo)
+    got = tbatch.merl_targets(torch.from_numpy(jt), ti, to)
+    assert want.dtype == jnp.float64 and got.dtype == torch.float64
+    same = same_index(ti, to, ji, jo)
+    np.testing.assert_array_equal(got.numpy()[:, same],
+                                  np.asarray(want)[:, same])
+    # a float32 table takes float64 too
+    assert tmerl.Merl(table=tt.float()).table.dtype == torch.float64
+    with pytest.raises(ValueError, match="float32"):
+        jbatch.fit_materials(want, ji, jo, steps=2)
+    with pytest.raises(TypeError, match="use_x64"):
+        tbatch.fit_materials(got, ti, to, steps=2)
+
+
+def test_lookup_gradient_wrt_the_table_matches_jax_grad(baked):
+    """The CPU lookup's backward (a scatter-add through the gather)
+    against jax.grad of JAX's Merl.eval, at directions whose indices
+    agree: rtol 1e-5 (sums in another order)."""
+    rng = np.random.default_rng(12)
+    i, o = hemi_dirs(rng, 6000, hi=1.6), hemi_dirs(rng, 6000, hi=1.6)
+    (ji, jo), (ti, to) = both(i, o)
+    keep = same_index(ti, to, ji, jo)
+    i, o = i[keep], o[keep]
+    w = rng.uniform(-1.0, 1.0, (i.shape[0], 3)).astype(np.float32)
+    (ji, jo, jw, jt), (ti, to, tw, tt) = both(i, o, w, baked[0])
+
+    def jloss(table):
+        return jnp.sum(jmerl.Merl(table=table).evalp(ji, jo) * jw)
+
+    want = np.asarray(jax.grad(jloss)(jt))
+    tt.requires_grad_(True)
+    torch.sum(tmerl.Merl(table=tt).evalp(ti, to) * tw).backward()
+    got = tt.grad.numpy()
+    assert np.count_nonzero(want) > 1000
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-12)
