@@ -87,12 +87,31 @@ Phases, one line each; any failure raises and exits non-zero:
    ``kernel_ad_sums``, which both keep, so any two commits of the port
    compare. The lookups and gathers must agree bit for bit (sha256 of
    the outputs), K4 within phase 11's tolerances.
+15. environment-map MIS at ``bench.py:508-537``'s scenes: lat-long maps
+   of 32x64 and 1024x2048 (one synthetic image from ``default_rng(0)``,
+   the 2M-bin one with nearest rows), bench.py's GGX sphere over its
+   Beckmann floor at res 256, spp 8, 3 bounces: ``EnvMap.build`` host
+   seconds, median frame ms of 5, samples/s, kernels per frame, device
+   busy ms and the share of the row gathers (alias, packed, texture
+   rows: the kernels of index_select and of indexing) in it, no
+   device-to-host copy; card vs CPU at res 32, spp 4 with the same
+   uniforms within phase 13's flip budget; a backward through
+   ``EnvMap.rebind`` at res 64; and a MERL ``MeasuredMaterial`` (phase
+   8's table 0) lit by the 32x64 map through the generic loop at res
+   128, spp 4, which must launch the lookup.
+16. ``bench.py:542-580``'s matpreview frame: a 512x512 alpha-textured
+   GGX sphere over a 512x512 LEAN-mapped Beckmann conductor floor with
+   ray-cone mip selection, lit by a 256x512 map, at phase 15's res, spp
+   and bounces: the same numbers; card vs CPU under the envmap (within
+   ``ENV_MAX_FLIPS``) and under the delta light (phase 13's budget);
+   and a backward w.r.t. the alpha map and the LEAN E1 map at res 64.
 
-Each main path (phases 3-5, the gather path of 7, 8, 9, 11 and the
-measured render of 13) runs with the launch counts of the wrappers set
-to 0 just before it and read just after; each kernel must have launched
-on its path (the fused fit exactly once per step, K4 once per call). The line before the last is a JSON summary of
-the kernels; the last line is the device record
+Each main path (phases 3-5, the gather path of 7, 8, 9, 11, the
+measured render of 13 and the measured envmap render of 15) runs with
+the launch counts of the wrappers set to 0 just before it and read just
+after; each kernel must have launched on its path (the fused fit
+exactly once per step, K4 once per call). The line before the last is a
+JSON summary of the kernels; the last line is the device record
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -165,6 +184,19 @@ PT_SKY = (0.3, 0.35, 0.4)
 # card vs CPU: pixels whose path flips an f32 branch (a grazing hit or a
 # horizon test an ulp from its edge) may differ; at most 1 in 256
 PT_RTOL, PT_ATOL, PT_MAX_FLIPS = 1e-4, 1e-4, 1 / 256
+# environment-map MIS and the matpreview frame (bench.py:508-580)
+ENV_SIZES = ((32, 64), (1024, 2048))
+ENV_RES, ENV_SPP, ENV_BOUNCES, ENV_FRAMES = 256, 8, 3, 5
+GOLD_ETA, GOLD_K = (0.143, 0.375, 1.442), (3.983, 2.386, 1.603)
+# the matpreview frame under its envmap, card vs CPU: a lookup whose
+# arccos/arctan2 (the card's and the CPU's differ by an ulp or two) lands
+# across a half-texel edge of the 256x512 map reads another pdf bin, and
+# so another MIS weight; one across an edge of the 512x512 alpha map
+# reads another roughness. At res 32, spp 4 that flips 2-7 pixels over
+# eight uniform seeds, while the same textured frame under the delta
+# light flips none (scripts/envmap_parity.py on an H100): the envmap
+# comparison allows 1 pixel in 64
+ENV_MAX_FLIPS = 1 / 64
 GATHER_SOURCE = "dj_brdf_torch/csrc/merl_gather.cu"
 N_GATHER = 2 ** 22              # tools/gather_experiments.py:23
 GATHER_ITERS = 20               # its timed() iterations
@@ -703,7 +735,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     counting = start_sass_counts(_build)
     probing = start_probe_build(_build)
-    _build.build_all(["fused_fit", "merl_gather", "fused_fit_ad"])
+    _build.build_all(["fused_fit", "merl_gather", "fused_fit_ad", "alias"])
     ff._lib()
     mg._lib()
     ff._lib_ad()
@@ -714,7 +746,7 @@ def main(argv=None):
                    if "registers" in ln or "spill" in ln]
             for name in ("fused_fit", "merl_gather", "fused_fit_ad")}
     nvcc_s = {k: round(v, 2) for k, v in _build.BUILD_SECONDS.items()}
-    log(f"phase 1 build: {build_s:.1f} s (nvcc {nvcc_s}); "
+    log(f"phase 1 build: {build_s:.1f} s (nvcc, g++ for alias: {nvcc_s}); "
         + " | ".join(r for name in regs for r in regs[name]))
     log(f"phase 1 f32 operations per evaluation, counted in the SASS: {ops}")
     results["build_s"] = build_s
@@ -905,8 +937,11 @@ def main(argv=None):
     k4 = phase11_k4(mg, ff, dgen, fitted_pvec, ops, results)
     phase12_entry(results)
     measured_lookups = phase13_pathtrace(mg, ff, tables, results)
+    table0 = tables[0].clone()
     del tables
     phase14_ab(args.baseline, args.seed, results)
+    measured_lookups += phase15_envmap(mg, ff, table0, results)
+    phase16_matpreview(results)
     main_launches = dict(launches)
     main_launches["merl_lookup"] = (results["merl_fit"]["launches_lookup"]
                                     + lookup_launches + measured_lookups)
@@ -1513,10 +1548,15 @@ def phase11_k4(mg, ff, dgen, fitted_pvec, ops, results):
     return k4
 
 
+# the kernels of index_select and of indexing (the row gathers)
+GATHER_KERNELS = r"gather_kernel|indexSelect|index_elementwise_kernel"
+
+
 def profile_frame(fn):
     """One call of ``fn`` under torch.profiler: kernels launched, device
     busy ms (their summed durations), the largest kernel by total time,
-    and device-to-host copies."""
+    the five largest, the ms of the row gathers (the kernels of
+    ``index_select`` and of indexing), and device-to-host copies."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1533,11 +1573,16 @@ def profile_frame(fn):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = max(by_name, key=by_name.get)
+    top = sorted(by_name, key=by_name.get, reverse=True)
     return {"kernels": len(kernels),
             "device_busy_ms": sum(by_name.values()) / 1e3,
-            "largest_kernel": top[:80],
-            "largest_kernel_ms": by_name[top] / 1e3,
+            "largest_kernel": top[0][:80],
+            "largest_kernel_ms": by_name[top[0]] / 1e3,
+            "gather_ms": sum(us for name, us in by_name.items()
+                             if re.search(GATHER_KERNELS, name)) / 1e3,
+            "gather_launches": sum(bool(re.search(GATHER_KERNELS, e.name))
+                                   for e in kernels),
+            "top5": [(name[:70], by_name[name] / 1e3) for name in top[:5]],
             "dtoh_copies": sum("DtoH" in e.name for e in device)}
 
 
@@ -1738,6 +1783,277 @@ def phase13_pathtrace(mg, ff, tables, results):
                        "proxy_alpha": float(measured.proxy_params.ax)}
     results["pathtrace"] = out
     return looked
+
+
+def env_image(h, w):
+    """bench.py's synthetic lat-long map (bench.py:512-515): |N(1, 0.5)|
+    texels from ``default_rng(0)`` with a 60x brighter sun patch."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    img = np.abs(rng.normal(1.0, 0.5, (h, w, 3))).astype(np.float32)
+    img[h // 5:h // 5 + max(1, h // 10), w // 3:w // 3 + max(1, w // 12)] *= 60.0
+    return img
+
+
+def env_frames(label, frame, rays):
+    """A warm-up, ``ENV_FRAMES`` timed frames and one profiled frame of
+    ``frame`` (no grad); logs and returns their numbers. Fails for a
+    frame that is not finite, lies off the card, is black or copied
+    data to the host."""
+    with torch.no_grad():
+        img = frame()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(ENV_FRAMES):
+            t0 = time.perf_counter()
+            img = frame()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        prof = profile_frame(frame)
+    ms = statistics.median(walls)
+    finite = bool(torch.isfinite(img).all())
+    share = prof["gather_ms"] / prof["device_busy_ms"]
+    log(f"{label} res {ENV_RES} spp {ENV_SPP} {ENV_BOUNCES} bounces: median "
+        f"frame {ms:.3f} ms over {ENV_FRAMES} ({[round(w, 3) for w in walls]}),"
+        f" {rays / (ms * 1e-3):.4g} samples/s, {prof['kernels']} kernels per "
+        f"frame, device busy {prof['device_busy_ms']:.3f} ms, row gathers "
+        f"{prof['gather_ms']:.3f} ms in {prof['gather_launches']} launches "
+        f"({share:.1%} of busy), largest "
+        f"{prof['largest_kernel']} {prof['largest_kernel_ms']:.3f} ms, DtoH "
+        f"copies {prof['dtoh_copies']}; mean {float(img.mean()):.5f}, finite "
+        f"{finite}")
+    if not (finite and img.device.type == "cuda" and prof["dtoh_copies"] == 0
+            and float(img.mean()) > 0.05):
+        raise AssertionError(f"{label}: the frame is not finite, not on the "
+                             "card, black, or copied data to the host")
+    return {"median_frame_ms": ms, "frames_ms": walls,
+            "samples_per_s": rays / (ms * 1e-3), "profile": prof,
+            "gather_share": share, "mean": float(img.mean())}
+
+
+def card_vs_cpu(label, render_on, max_flips=PT_MAX_FLIPS):
+    """``render_on(device, res, spp, u, u_env)`` at res 32, spp 4 on the
+    card and on the CPU with the same uniforms: the pixels beyond phase
+    13's tolerances must be at most ``max_flips`` of the image."""
+    res, spp = 32, 4
+    gen = torch.Generator().manual_seed(1)
+    u = torch.rand((ENV_BOUNCES, res * res * spp, 2), generator=gen)
+    u_env = torch.rand((ENV_BOUNCES, res * res * spp, 3), generator=gen)
+    small = {device: render_on(device, res, spp, u.to(device),
+                               u_env.to(device)).detach().cpu()
+             for device in ("cuda", "cpu")}
+    diff = (small["cuda"] - small["cpu"]).abs()
+    flips = int((diff > PT_ATOL + PT_RTOL * small["cpu"].abs()).any(-1).sum())
+    log(f"{label} res {res} spp {spp}: card vs CPU max abs err "
+        f"{float(diff.max()):.3e}, {flips} of {res * res} pixels beyond rtol "
+        f"{PT_RTOL} + atol {PT_ATOL} (allowed {int(max_flips * res * res)})")
+    if flips > max_flips * res * res:
+        raise AssertionError(f"{label}: the card's render disagrees with the "
+                             "CPU path")
+    return {"cpu_parity_max_abs_err": float(diff.max()),
+            "cpu_parity_flips": flips}
+
+
+def phase15_envmap(mg, ff, table0, results):
+    """Environment-map MIS at bench.py's two map sizes: build time, frame
+    numbers, card vs CPU, a backward through ``EnvMap.rebind``, and a
+    measured material through the generic MIS loop."""
+    from dj_brdf_torch.render import pathtrace
+    from dj_brdf_torch.render.envmap import EnvMap
+    from dj_brdf_torch.render.materials import MeasuredMaterial
+
+    black = (0.0, 0.0, 0.0)
+    rays = ENV_RES * ENV_RES * ENV_SPP
+    out = {}
+    for h, w in ENV_SIZES:
+        img = env_image(h, w)
+        t0 = time.perf_counter()
+        em = EnvMap.build(img)             # host tables, then to the card
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        filt = "nearest" if em.packed.shape[-1] == 4 else "bilinear"
+        log(f"phase 15 EnvMap.build {h}x{w} ({h * w} bins, {filt} rows): "
+            f"{build_s:.4f} s on the host")
+        sphere, floor_mat = pt_scene("beck", "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def frame():
+            return pathtrace.render(sphere, floor_mat, PT_LIGHT, black, black,
+                                    res=ENV_RES, spp=ENV_SPP,
+                                    max_bounces=ENV_BOUNCES, envmap=em,
+                                    generator=gen)
+
+        def render_on(device, res, spp, u, u_env):
+            s_mat, f_mat = pt_scene("beck", device)
+            return pathtrace.render(
+                s_mat, f_mat, PT_LIGHT, black, black, res=res, spp=spp,
+                max_bounces=ENV_BOUNCES, u=u, u_env=u_env,
+                envmap=EnvMap.build(img, device=device))
+
+        rec = env_frames(f"phase 15 envmap {h}x{w}", frame, rays)
+        rec.update(card_vs_cpu(f"phase 15 envmap {h}x{w}", render_on))
+        rec["build_s"] = build_s
+        rec["filter"] = filt
+        out[f"{h}x{w}"] = rec
+        if (h, w) == ENV_SIZES[0]:
+            em_small, img_small = em, img
+
+    # a backward through rebind: d mean / d radiance, res 64
+    rad = torch.tensor(img_small, device="cuda", requires_grad=True)
+    sphere, floor_mat = pt_scene("beck", "cuda")
+    t0 = time.perf_counter()
+    pathtrace.render(sphere, floor_mat, PT_LIGHT, black, black, res=64,
+                     spp=ENV_SPP, max_bounces=ENV_BOUNCES,
+                     envmap=em_small.rebind(rad),
+                     generator=torch.Generator(device="cuda").manual_seed(2)
+                     ).mean().backward()
+    torch.cuda.synchronize()
+    bwd_s = time.perf_counter() - t0
+    g = rad.grad
+    log(f"phase 15 rebind backward res 64 spp {ENV_SPP}: d mean / d radiance "
+        f"{tuple(g.shape)}, |grad| sum {float(g.abs().sum()):.5e}, max "
+        f"{float(g.abs().max()):.5e}, {bwd_s:.3f} s (forward + backward)")
+    if not (torch.isfinite(g).all() and g.abs().max() > 0):
+        raise AssertionError("phase 15: the radiance gradient is not finite "
+                             "or all zero")
+    out["rebind_backward"] = {"grad_abs_sum": float(g.abs().sum()),
+                              "grad_abs_max": float(g.abs().max()),
+                              "wall_s": bwd_s}
+
+    # phase 8's MERL table 0 under the 32x64 map: the generic MIS loop
+    torch.cuda.synchronize()
+    reset_counts(mg, ff)
+    t0 = time.perf_counter()
+    measured = MeasuredMaterial.from_merl(table0)
+    _, floor_mat = pt_scene("ggx", "cuda")
+    with torch.no_grad():
+        img = pathtrace.render(measured, floor_mat, PT_LIGHT, black, black,
+                               res=128, spp=4, max_bounces=ENV_BOUNCES,
+                               envmap=em_small,
+                               generator=torch.Generator(device="cuda")
+                               .manual_seed(3))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    looked = mg.LAUNCHES["merl_lookup"]
+    log(f"phase 15 MeasuredMaterial.from_merl (phase 8 table 0) under the "
+        f"32x64 map through the generic MIS loop res 128 spp 4: {wall:.3f} s "
+        f"with the proxy fit, lookups {looked}, mean {float(img.mean()):.5f}, "
+        f"finite {bool(torch.isfinite(img).all())}")
+    if not (torch.isfinite(img).all() and looked > 0
+            and float(img.mean()) > 0):
+        raise AssertionError("phase 15: the measured-material envmap render "
+                             "is not finite, black, or never ran the lookup "
+                             "kernel")
+    out["measured"] = {"wall_s": wall, "lookups": looked,
+                       "mean": float(img.mean())}
+    results["envmap"] = out
+    return looked
+
+
+def matpreview_scene(device, amap, e1):
+    """bench.py:555-567's matpreview materials: an alpha-textured GGX
+    sphere over a LEAN-mapped Beckmann conductor with ray-cone mip
+    selection, on ``device``, from the (512, 512) maps ``amap``, ``e1``."""
+    from dj_brdf_torch import fresnel
+    from dj_brdf_torch.lean.filtered import FilteredBeckmannMaterial
+    from dj_brdf_torch.lean.lrep import Lrep
+    from dj_brdf_torch.microfacet.ndf import GGX
+    from dj_brdf_torch.microfacet.params import MicrofacetParams
+    from dj_brdf_torch.render.materials import TexturedMicrofacetMaterial
+
+    def vec(*x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+
+    sphere = TexturedMicrofacetMaterial(
+        dist=GGX(), fres=fresnel.Schlick(f0=vec(0.9, 0.6, 0.3)), alpha1=amap,
+        alpha2=amap, alpha_angle=vec(0.0)[0])
+    floor = FilteredBeckmannMaterial(
+        lean=Lrep(E1=e1, E2=e1 * 0.5, E3=e1 * e1 + 0.02,
+                  E4=0.25 * e1 * e1 + 0.02, E5=0.5 * e1 * e1),
+        base_params=MicrofacetParams.isotropic(vec(0.1)[0]),
+        eta=vec(*GOLD_ETA), k=vec(*GOLD_K), mip_lod=True)
+    return sphere, floor
+
+
+def phase16_matpreview(results):
+    """bench.py's matpreview frame: per-hit alpha-texture and LEAN-moment
+    reads inside the envmap MIS loop, card vs CPU, and a backward w.r.t.
+    the alpha map and the LEAN E1 map."""
+    import numpy as np
+
+    from dj_brdf_torch.render import pathtrace
+    from dj_brdf_torch.render.envmap import EnvMap
+
+    black = (0.0, 0.0, 0.0)
+    rng = np.random.default_rng(0)        # bench.py:550-560's draw order
+    img = np.abs(rng.normal(1.0, 0.5, (256, 512, 3))).astype(np.float32)
+    img[50:60, 160:170] *= 60.0
+    amap = rng.uniform(0.05, 0.6, (512, 512)).astype(np.float32)
+    e1 = rng.normal(0, 0.15, (512, 512)).astype(np.float32)
+    t0 = time.perf_counter()
+    em = EnvMap.build(img)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sphere, floor = matpreview_scene("cuda", torch.from_numpy(amap).cuda(),
+                                     torch.from_numpy(e1).cuda())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def frame():
+        return pathtrace.render(sphere, floor, PT_LIGHT, black, black,
+                                res=ENV_RES, spp=ENV_SPP,
+                                max_bounces=ENV_BOUNCES, envmap=em,
+                                generator=gen)
+
+    def render_on(device, res, spp, u, u_env, envmap=True):
+        s_mat, f_mat = matpreview_scene(device, torch.from_numpy(amap).to(
+            device), torch.from_numpy(e1).to(device))
+        if not envmap:
+            return pathtrace.render(s_mat, f_mat, PT_LIGHT, PT_LIGHT_RAD,
+                                    PT_SKY, res=res, spp=spp,
+                                    max_bounces=ENV_BOUNCES, u=u)
+        return pathtrace.render(s_mat, f_mat, PT_LIGHT, black, black, res=res,
+                                spp=spp, max_bounces=ENV_BOUNCES, u=u,
+                                u_env=u_env,
+                                envmap=EnvMap.build(img, device=device))
+
+    log(f"phase 16 matpreview: EnvMap.build 256x512 {build_s:.4f} s on the "
+        "host; 512x512 alpha map, 512x512 LEAN moments with mip_lod, "
+        "conductor eta/k")
+    out = env_frames("phase 16 matpreview", frame, ENV_RES * ENV_RES * ENV_SPP)
+    out.update(card_vs_cpu("phase 16 matpreview", render_on, ENV_MAX_FLIPS))
+    # the textures, LEAN moments, mip levels and conductor Fresnel under
+    # the delta light: phase 13's budget
+    out["delta_light"] = card_vs_cpu(
+        "phase 16 matpreview materials under the delta light",
+        lambda *a: render_on(*a, envmap=False))
+    out["build_s"] = build_s
+
+    a = torch.from_numpy(amap).cuda().requires_grad_(True)
+    e = torch.from_numpy(e1).cuda().requires_grad_(True)
+    s_mat, f_mat = matpreview_scene("cuda", a, e)
+    t0 = time.perf_counter()
+    pathtrace.render(s_mat, f_mat, PT_LIGHT, black, black, res=64,
+                     spp=ENV_SPP, max_bounces=ENV_BOUNCES, envmap=em,
+                     generator=torch.Generator(device="cuda").manual_seed(2)
+                     ).mean().backward()
+    torch.cuda.synchronize()
+    bwd_s = time.perf_counter() - t0
+    grads = {"alpha": a.grad, "E1": e.grad}
+    log("phase 16 backward res 64 spp "
+        f"{ENV_SPP}: " + ", ".join(
+            f"d mean / d {k} |grad| sum {float(g.abs().sum()):.5e} max "
+            f"{float(g.abs().max()):.5e} on {int((g != 0).sum())} texels"
+            for k, g in grads.items()) + f"; {bwd_s:.3f} s (forward + backward)")
+    if not all(torch.isfinite(g).all() and g.abs().max() > 0
+               for g in grads.values()):
+        raise AssertionError("phase 16: a map gradient is not finite or all "
+                             "zero")
+    out["backward"] = {k: {"grad_abs_sum": float(g.abs().sum()),
+                           "grad_abs_max": float(g.abs().max())}
+                       for k, g in grads.items()}
+    out["backward"]["wall_s"] = bwd_s
+    results["matpreview"] = out
 
 
 def ab_times(root, seed):

@@ -6,7 +6,8 @@ either a mapping of field name to array or any object with those
 fields as attributes (a NamedTuple, a frozen dataclass). Leading batch
 axes are kept. :func:`material_from_jax` takes a JAX renderer material
 itself and rebuilds it, field by field, from the port's classes of the
-same names. Nothing here imports JAX.
+same names, and :func:`envmap_from_jax` copies an environment map's
+tables bit for bit. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -21,12 +22,15 @@ import torch
 from dj_brdf_torch import fresnel
 from dj_brdf_torch.fit.lsq import RawFit
 from dj_brdf_torch.fresnel import Schlick
+from dj_brdf_torch.lean.filtered import FilteredBeckmannMaterial
+from dj_brdf_torch.lean.lrep import Lrep
 from dj_brdf_torch.microfacet import ndf
 from dj_brdf_torch.microfacet.ndf import Tabular
 from dj_brdf_torch.microfacet.params import MicrofacetParams
 from dj_brdf_torch.models.lambert import Lambert
 from dj_brdf_torch.models.merl import Merl
 from dj_brdf_torch.render import materials
+from dj_brdf_torch.render.envmap import EnvMap
 
 _PARAMS = ("ax", "ay", "rho", "txn", "tyn")
 _TABULAR = ("p22", "sigma", "cdf", "qf")
@@ -95,7 +99,9 @@ def merl_from_jax(merl, device=None) -> Merl:
 #: the port's classes a JAX material may be built from, by class name
 _MATERIAL_CLASSES = {cls.__name__: cls for cls in (
     materials.MicrofacetMaterial, materials.MeasuredMaterial,
-    materials.CosineMaterial, materials.ConductorWrap, MicrofacetParams,
+    materials.CosineMaterial, materials.ConductorWrap,
+    materials.TexturedMicrofacetMaterial, materials.UVMappedMaterial,
+    FilteredBeckmannMaterial, Lrep, MicrofacetParams,
     ndf.GGX, ndf.GGXSphericalCaps, ndf.Beckmann, ndf.Tabular, Lambert, Merl,
     fresnel.Ideal, fresnel.Schlick, fresnel.Unpolarized, fresnel.SGDFresnel,
     fresnel.Conductor, fresnel.SplineFresnel)}
@@ -103,12 +109,14 @@ _MATERIAL_CLASSES = {cls.__name__: cls for cls in (
 
 def material_from_jax(obj, device=None):
     """A JAX renderer material (``MicrofacetMaterial``,
-    ``MeasuredMaterial``, ``CosineMaterial``, ``ConductorWrap``) and
-    everything inside it (distributions, Fresnel models, parameters,
+    ``MeasuredMaterial``, ``CosineMaterial``, ``ConductorWrap``,
+    ``TexturedMicrofacetMaterial``, ``UVMappedMaterial``,
+    ``FilteredBeckmannMaterial``) and everything inside it
+    (distributions, Fresnel models, parameters, LEAN moments,
     ``Lambert``/``Merl`` models) -> the port's object of the same class
     name. Array leaves become tensors on ``device`` with their dtype;
-    static fields are copied. Raises ``TypeError`` for a class the port
-    does not have."""
+    static fields and ``None`` leaves are copied. Raises ``TypeError``
+    for a class the port does not have."""
     name = type(obj).__name__
     cls = _MATERIAL_CLASSES.get(name)
     if cls is None:
@@ -116,10 +124,21 @@ def material_from_jax(obj, device=None):
     kwargs = {}
     for f in dataclasses.fields(cls):
         value = getattr(obj, f.name)
-        if f.metadata.get("static", False):
+        if f.metadata.get("static", False) or value is None:
             kwargs[f.name] = value
         elif type(value).__name__ in _MATERIAL_CLASSES:
             kwargs[f.name] = material_from_jax(value, device)
         else:
             kwargs[f.name] = torch.as_tensor(np.array(value), device=device)
     return cls(**kwargs)
+
+
+def envmap_from_jax(em, device=None) -> EnvMap:
+    """JAX ``EnvMap`` (its tables as numpy) -> the port's, every table
+    copied bit for bit (the alias partners' int32 bit patterns too)."""
+    def arr(name):
+        value = _get(em, name)
+        return None if value is None else torch.as_tensor(
+            np.array(value, np.float32), device=device)
+    return EnvMap(radiance=arr("radiance"), packed=arr("packed"),
+                  alias=arr("alias"), rot=arr("rot"))

@@ -429,7 +429,7 @@ def beckmann_evalp_is_soa(pvec, u1, u2, ox, oy, oz, fresnel_fn=None):
 
 def mixed_nee_evalp_is_soa(pvec, is_beck, lx, ly, lz, u1, u2, ox, oy, oz,
                            caps: bool = False, with_nee: bool = True,
-                           fresnel_fn=None):
+                           with_nee_pdf: bool = False, fresnel_fn=None):
     """Dual-family fused NEE evalp + VNDF sample + IS weight for
     per-ray GGX/Beckmann dispatch — the mixed-material path tracer's
     bounce body.
@@ -445,7 +445,10 @@ def mixed_nee_evalp_is_soa(pvec, is_beck, lx, ly, lz, u1, u2, ox, oy, oz,
     (8,) or per-ray (8, N); ``is_beck``: bool mask. Returns (fr, fg,
     fb, wr, wg, wb, ix, iy, iz, pdf); ``with_nee=False`` skips the NEE
     eval and returns the last 7 only (the path tracer's
-    spp-deduplicated first bounce evaluates NEE once per pixel)."""
+    spp-deduplicated first bounce evaluates NEE once per pixel);
+    ``with_nee_pdf`` also returns the VNDF sampler's density at the NEE
+    direction after (fr, fg, fb), the MIS counter-pdf of environment
+    lighting: (fr, fg, fb, pdf_nee, wr, wg, wb, ix, iy, iz, pdf)."""
     from dj_brdf_torch.microfacet.ndf import GGX, beckmann_qf2_slope_domain
 
     ax, ay, rho = pvec[0], pvec[1], pvec[2]
@@ -522,6 +525,14 @@ def mixed_nee_evalp_is_soa(pvec, is_beck, lx, ly, lz, u1, u2, ox, oy, oz,
         base = _where0(ok_b, d_nee * g_nee
                        * (1.0 / torch.where(ok_b, oz4, 1.0)))
         nee = (fr_n * base, fg_n * base, fb_n * base)
+        if with_nee_pdf:
+            # D(h) / (4 sigma(o)) at the light direction (dj_brdf.h:
+            # 1713-1730); the g_nee gate mirrors the sampler's own pdf
+            # gating, so the two MIS weights sum to 1 at edge lanes
+            okp = ((c_o > 0) & (torch.abs(sig_o) >= 1e-12) & valid_h
+                   & (lz > 0) & (g_nee > 0))
+            nee = nee + (_where0(okp, 0.25 * d_nee
+                                 * (1.0 / torch.where(okp, sig_o, 1.0))),)
 
     # ---- VNDF sample + IS weight -----------------------------------
     u1, u2 = _clip_u(u1), _clip_u(u2)

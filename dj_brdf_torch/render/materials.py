@@ -15,15 +15,18 @@ evalp_is) surface that the path tracer and the sphere renderer consume:
   dj_brdf.h:830-845).
 * :class:`ConductorWrap` — exact conductor Fresnel on top of any
   material (mitsuba/dj_brdf.cpp:366, 430).
+* :class:`TexturedMicrofacetMaterial` and :class:`UVMappedMaterial` —
+  the dj_brdf plugin's textured alpha1/alpha2/alphaAngle, fetched per
+  shading point (dj_brdf.cpp:353-357).
+* ``lean.filtered.FilteredBeckmannMaterial`` — dj_beckmannconductor.
 
-Counterpart of ``dj_brdf_tpu/render/materials.py``. The textured
-materials (``TextureProvider``, ``TexturedMicrofacetMaterial``,
-``UVMappedMaterial``) are not ported yet.
+Counterpart of ``dj_brdf_tpu/render/materials.py``.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -106,6 +109,154 @@ class MicrofacetMaterial:
         bad = c_o <= 0.0
         return (torch.where(bad[..., None], 0.0, w), i,
                 torch.where(bad, 0.0, pdf))
+
+
+def _fetch_rows(packed, h, w, uu, vv):
+    """Nearest-texel row read of a flat (H*W, k) packed texture at
+    normalized uv (the sample_texture convention; differentiable
+    w.r.t. the texels)."""
+    return packed.index_select(0, texel_index(h, w, uu, vv))
+
+
+def texel_index(h, w, uu, vv):
+    """Flat nearest-texel index at normalized uv, clipped into the map."""
+    yi = (vv * h).to(torch.int32).clamp(0, h - 1)
+    xi = (uu * w).to(torch.int32).clamp(0, w - 1)
+    return yi * w + xi
+
+
+class TextureProvider(NamedTuple):
+    """A textured material's per-hit parameter source for the fused
+    path tracer: ``packed`` (rows, k), the texture rows (possibly a
+    whole mip pyramid flattened level-major), read at the indices
+    ``index(uu, vv, lod)``; ``assemble(row) -> (8, N)`` turns the rows
+    into the samplers' pvec. Exposing the packed table (rather than a
+    fetch closure) lets the render loop COMBINE both materials' tables
+    into one and serve sphere and floor lanes, disjoint populations,
+    with one row read per bounce.
+
+    ``neutral``: a (k,) row of safe values substituted on the OTHER
+    material's lanes before assembly, so cross-material bytes never
+    reach assemble's math (whose backward would turn 0 x inf into
+    NaN). ``wants_lod``: True when ``index`` uses the per-lane ray-cone
+    LOD (mip pyramids); the render loop tracks footprints only then."""
+    packed: object
+    h: int
+    w: int
+    assemble: object
+    neutral: object
+    index: object
+    wants_lod: bool = False
+
+
+@pytree_dataclass
+class TexturedMicrofacetMaterial:
+    """The dj_brdf plugin's textured-roughness front end for the path
+    tracer: alpha1/alpha2/alphaAngle are evaluated per shading point
+    *inside the bounce loop* (mitsuba/dj_brdf.cpp:353-357), so the
+    material composes with any transport: direct light, multi-bounce,
+    envmap MIS.
+
+    Each alpha leaf is a scalar or an (H, W) texture; all texture
+    leaves must share one shape so the per-hit fetch is ONE packed row
+    read. Rendering goes through the fused SoA samplers, which take
+    per-ray (8, N) parameter vectors (ops/soa.py); gradients flow into
+    the texture leaves (inverse rendering of roughness maps)."""
+
+    dist: object                 # GGX-family or Beckmann
+    fres: object                 # Schlick
+    alpha1: torch.Tensor
+    alpha2: torch.Tensor
+    alpha_angle: torch.Tensor
+
+    def _fused_family(self):
+        if not isinstance(self.fres, fresnel_mod.Schlick):
+            return None
+        if not (type(self.dist) is Beckmann or isinstance(self.dist, GGX)):
+            return None
+        fam = "beck" if type(self.dist) is Beckmann else "ggx"
+        return fam, isinstance(self.dist, GGXSphericalCaps)
+
+    def pvec_provider(self) -> TextureProvider:
+        """Per-hit parameter provider: the textured alphas pack into
+        one (H*W, k) table (built here, once per render, outside the
+        bounce loop); ``assemble`` converts a fetched row's elliptic
+        frame to PDF parameters and appends the Schlick f0."""
+        from dj_brdf_torch.render.pathtrace import _stack_pvec
+
+        leaves = [("a1", self.alpha1), ("a2", self.alpha2),
+                  ("ang", self.alpha_angle)]
+        texs = [(k, torch.as_tensor(v, dtype=torch.float32)) for k, v in
+                leaves if torch.as_tensor(v).dim() == 2]
+        shapes = {tuple(v.shape) for _, v in texs}
+        if len(shapes) > 1:
+            raise ValueError(
+                f"textured alpha maps must share one shape, got {shapes}")
+        packed = cols = h = w = neutral = None
+        if texs:
+            h, w = texs[0][1].shape
+            packed = torch.stack([v for _, v in texs], -1).reshape(
+                -1, len(texs))
+            cols = {k: i for i, (k, _) in enumerate(texs)}
+            neutral = torch.full((len(texs),), 0.3, dtype=torch.float32,
+                                 device=packed.device)
+        f0 = torch.as_tensor(self.fres.f0, dtype=torch.float32)
+
+        def assemble(row):
+            def get(key, leaf):
+                if cols is not None and key in cols:
+                    return row[..., cols[key]]
+                return torch.as_tensor(leaf, dtype=torch.float32,
+                                       device=f0.device)
+
+            p = MicrofacetParams.elliptic(get("a1", self.alpha1),
+                                          get("a2", self.alpha2),
+                                          get("ang", self.alpha_angle))
+            return _stack_pvec(p.ax, p.ay, p.rho, p.txn, p.tyn,
+                               f0[0], f0[1], f0[2])
+
+        def index(uu, vv, lod=None):
+            return texel_index(h, w, uu, vv)
+
+        return TextureProvider(packed=packed, h=h, w=w,
+                               assemble=assemble, neutral=neutral,
+                               index=index)
+
+
+@pytree_dataclass
+class UVMappedMaterial:
+    """Textured roughness over ANY distribution, tabular NDFs included,
+    for the path tracer's generic loop: the dj_brdf plugin's textured
+    alpha1/alpha2/alphaAngle front end with distribution="tabular"
+    (mitsuba/dj_brdf.cpp:208-233, 353-357), where the texture modulates
+    the extracted table's unit base roughness per shading point.
+
+    The bounce loop calls :meth:`at_uv` with the per-hit uv; the result
+    is a plain MicrofacetMaterial whose parameter leaves are per-lane
+    tensors (MicrofacetParams broadcasts), evaluated through the
+    layered path. Gradients flow into the texture leaves."""
+
+    dist: object                 # any distribution (Tabular included)
+    fres: object
+    alpha1: torch.Tensor         # scalar or (H, W)
+    alpha2: torch.Tensor
+    alpha_angle: torch.Tensor
+
+    def at_uv(self, uu, vv):
+        def fetch(leaf):
+            leaf = torch.as_tensor(leaf, dtype=torch.float32,
+                                   device=uu.device)
+            if leaf.dim() != 2:
+                return leaf
+            h, w = leaf.shape
+            return leaf.reshape(-1).index_select(0, texel_index(h, w, uu,
+                                                                vv))
+
+        params = MicrofacetParams.elliptic(fetch(self.alpha1),
+                                           fetch(self.alpha2),
+                                           fetch(self.alpha_angle))
+        return MicrofacetMaterial(dist=self.dist, fres=self.fres,
+                                  params=params)
 
 
 @pytree_dataclass

@@ -3,7 +3,7 @@ unless the caller asks for the CPU: ``entry()``, ``sample_direction_set``,
 ``bake_merl``, ``raw_init``; ``build_tabular``, ``compute_p22_smith`` and
 ``MeasuredMaterial.from_model`` of a bare eval function; ``render`` of
 materials that hold no tensor; ``render_sphere`` with a light direction
-that is not a tensor. Called without a device they put their tensors on
+that is not a tensor; ``EnvMap.build`` of a numpy image. Called without a device they put their tensors on
 the card, and on a machine without one they raise; they never quietly
 fall back to the CPU. Whether there is a card is decided inside each
 test."""
@@ -11,6 +11,7 @@ test."""
 import dataclasses
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -24,10 +25,13 @@ from dj_brdf_torch.microfacet import brdf
 from dj_brdf_torch.microfacet.ndf import GGX
 from dj_brdf_torch.microfacet.params import MicrofacetParams
 from dj_brdf_torch.render import pathtrace
+from dj_brdf_torch.render.envmap import EnvMap
 from dj_brdf_torch.render.materials import CosineMaterial, MeasuredMaterial
 from dj_brdf_torch.render.sphere import render_sphere
 
 LIGHT, LIGHT_RAD, SKY = (0.3, 0.4, 0.8), (4.0, 4.0, 4.0), (0.3, 0.35, 0.4)
+SUN_SKY = np.random.default_rng(0).uniform(0.5, 2.0, (4, 8, 3)).astype(
+    np.float32)
 
 
 def ggx_eval(i, o):
@@ -65,6 +69,11 @@ def grey_render(**kw):
                              max_bounces=1, **kw)]
 
 
+def envmap_tables(**kw):
+    em = EnvMap.build(SUN_SKY, **kw)
+    return [em.radiance, em.packed, em.alias]
+
+
 def default_directions():
     gen = torch.Generator("cuda" if torch.cuda.is_available() else "cpu")
     return list(sample_direction_set(64, gen.manual_seed(0)))
@@ -72,6 +81,7 @@ def default_directions():
 
 DEFAULTS = {
     "entry": lambda: list(entry()[1][1:]),
+    "envmap_build": envmap_tables,
     "sample_direction_set": default_directions,
     "bake_merl": lambda: [bake_merl(ggx_eval)],
     "build_tabular": lambda: tensors_of_tabular(
@@ -85,6 +95,7 @@ DEFAULTS = {
 
 ON_THE_CPU = {
     "entry": lambda: [entry("cpu")[1][0].ax, *entry("cpu")[1][1:]],
+    "envmap_build": lambda: envmap_tables(device="cpu"),
     "sample_direction_set": lambda: list(sample_direction_set(
         64, torch.Generator().manual_seed(0), "cpu")),
     "bake_merl": lambda: [bake_merl(ggx_eval, "cpu")],

@@ -33,6 +33,10 @@ SLICE_MODULES = [
     "dj_brdf_torch.render", "dj_brdf_torch.render.sphere",
     "dj_brdf_torch.render.materials", "dj_brdf_torch.render.pathtrace",
     "dj_brdf_torch.entry",
+    # slice 7: environment-map MIS, textured materials, LEAN
+    "dj_brdf_torch.render.envmap", "dj_brdf_torch.lean",
+    "dj_brdf_torch.lean.lrep", "dj_brdf_torch.lean.maps",
+    "dj_brdf_torch.lean.filtered",
 ]
 
 

@@ -156,24 +156,30 @@ def test_evalp_is_soa_matches_jax(kind, per_lane):
 
 
 @pytest.mark.parametrize("caps", [False, True])
-@pytest.mark.parametrize("with_nee", [True, False])
+@pytest.mark.parametrize("with_nee", [True, False, "pdf"])
 @pytest.mark.parametrize("fresnel", [False, True])
 def test_mixed_nee_evalp_is_soa_matches_jax(caps, with_nee, fresnel):
+    """The dual-family pass, with the NEE eval, without it, and with the
+    NEE eval and its MIS counter-pdf (``with_nee_pdf``)."""
     n = 1024
     o, light, u = gated_lanes(n, 2)
     pv = pvecs(n, True)
     is_beck = np.arange(n) % 3 == 0
     jf, tf = fres_pair() if fresnel else (None, None)
+    kw = dict(caps=caps, with_nee=bool(with_nee),
+              with_nee_pdf=with_nee == "pdf")
     want = jsoa.mixed_nee_evalp_is_soa(
-        jnp.asarray(pv), jnp.asarray(is_beck), *light, *u, *o, caps=caps,
-        with_nee=with_nee, fresnel_fn=jf)
+        jnp.asarray(pv), jnp.asarray(is_beck), *light, *u, *o,
+        fresnel_fn=jf, **kw)
     got = tsoa.mixed_nee_evalp_is_soa(
         t(pv), torch.from_numpy(is_beck), *map(t, light), *map(t, u),
-        *map(t, o), caps=caps, with_nee=with_nee, fresnel_fn=tf)
-    assert len(got) == len(want) == (10 if with_nee else 7)
+        *map(t, o), fresnel_fn=tf, **kw)
+    assert len(got) == len(want) == {True: 10, False: 7, "pdf": 11}[with_nee]
     for k, (g, w) in enumerate(zip(got[:-7], want[:-7])):
         close(g, w, rtol=2e-5, atol_rel=1e-6, what=f"nee {k}")
     check_sampled(got[-7:], want[-7:])
+    if with_nee == "pdf":
+        assert float((got[3] > 0).float().mean()) > 0.3
 
 
 @pytest.mark.parametrize("family", ["ggx", "beck"])
@@ -494,23 +500,21 @@ def test_pathtrace_default_generator_and_shapes():
 
 
 def test_unported_render_arguments_raise():
+    """``mesh=`` is not ported and raises; what the JAX package rejects,
+    the port rejects the same way: a textured material beside one the
+    fused loop cannot take, and a material class without a counterpart."""
     ts, tf = (convert.material_from_jax(m) for m in scene("ggx"))
     args = (LIGHT, LIGHT_RAD, SKY)
-    with pytest.raises(NotImplementedError, match="environment-map"):
-        tpt.render(ts, tf, *args, res=4, spp=1, envmap=object())
     with pytest.raises(NotImplementedError, match="slice 4"):
         tpt.render(ts, tf, *args, res=4, spp=1, mesh=object())
-    textured = dataclasses.replace(ts, params=TParams.elliptic(
-        torch.full((4, 4), 0.3), torch.full((4, 4), 0.2), 0.0))
-    with pytest.raises(NotImplementedError, match="textured"):
-        tpt.render(textured, tf, *args, res=4, spp=1)
-
-    @dataclasses.dataclass(frozen=True)
-    class FilteredBeckmannMaterial:
-        lean: object = None
-    with pytest.raises(NotImplementedError, match="LEAN"):
-        tpt.render(ts, FilteredBeckmannMaterial(), *args, res=4, spp=1)
+    js = jmat.TexturedMicrofacetMaterial(
+        jndf.GGX(), jfres.Schlick(f0=jnp.ones(3)), jnp.ones((2, 2)),
+        jnp.ones((2, 2)), jnp.zeros(()))
+    jf = scene("cosine")[1]
+    with pytest.raises(ValueError, match="fused SoA path"):
+        jpt.render(js, jf, *map(jnp.asarray, args), res=4, spp=1)
+    with pytest.raises(ValueError, match="fused SoA path"):
+        tpt.render(convert.material_from_jax(js),
+                   convert.material_from_jax(jf), *args, res=4, spp=1)
     with pytest.raises(TypeError, match="no counterpart"):
-        convert.material_from_jax(jmat.TexturedMicrofacetMaterial(
-            jndf.GGX(), jfres.Schlick(f0=jnp.ones(3)), jnp.ones((2, 2)),
-            jnp.ones((2, 2)), jnp.zeros(())))
+        convert.material_from_jax(object())
