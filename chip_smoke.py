@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one GPU: the fitting step,
 measured MERL data through tabulation to fitted roughness, the autodiff
-cross-check of the fit step, and rendering.
+cross-check of the fit step, rendering, UTIA data through the
+anisotropic tabulation to a fit and a render, and the SGD/ABC fits with
+the native file I/O.
 
     python3 chip_smoke.py [--seed 0] [--out results.json] [--baseline DIR]
 
@@ -105,9 +107,39 @@ Phases, one line each; any failure raises and exits non-zero:
    and bounces: the same numbers; card vs CPU under the envmap (within
    ``ENV_MAX_FLIPS``) and under the delta light (phase 13's budget);
    and a backward w.r.t. the alpha map and the LEAN E1 map at res 64.
+17. UTIA and the anisotropic path at ``bench.py``'s sizes: its
+   anisotropic GGX (elliptic 0.3, 0.15, 0.4, Ideal Fresnel) baked into a
+   UTIA table on the card (against the CPU bake), written and read back
+   by the native parser and by numpy (rtol 1e-6); ``Utia.build`` and
+   ``evalp`` at N = 2^23 (evals/s beside the byte bound, kernels, the
+   CPU path on 2^16 of them) and the three plain forms of its (N, 48) row
+   gather (``index_select``, indexing, a flat ``take``) timed in turns,
+   bit for bit; ``nrm_utia --device cuda`` in a subprocess at its
+   default 64x256 x 64x256 grid on the GGX bake and a 0.7 Lambert bake
+   (ok) and on a 3.0 Lambert bake (exit 1); ``build_tabular_anisotropic``
+   at 90x90 (the device f32 power stage) of the analytic GGX
+   (``aniso_fit90_wall_seconds``, best of two after a warm run) and of
+   the ``Utia``, its peak memory, both against the CPU path (rtol 1e-4;
+   qf entries may move by one grid step, counted);
+   ``power_iteration_matvecs_per_s_n8010``; both anisotropic moment
+   fits on both tables against the CPU path; ``fit_lsq`` (K1, GGX) on
+   ``Utia.evalp`` targets at N = 2^22, 200 steps, one launch a step, the
+   loss falling, and card vs CPU at 2^16 over 50 steps; renders of
+   ``utia_fit``'s (Beckmann with the table's Fresnel and moment-fit
+   parameters) and ``utia_tab``'s (the table itself) materials over
+   phase 13's GGX floor through the generic loop at res 256, spp 8, 3
+   bounces (frame ms, kernels, finite) and card vs CPU at res 32, spp 4.
+18. ``SGD.all_materials()`` and ``ABC.all_materials()`` at phase 3's
+   1,458,000 directions, a few materials at a time, against the CPU path
+   on 4 materials; ``fit_materials`` (K3, GGX) on the 100 SGD targets,
+   300 steps, one launch a step, every loss finite and falling; the
+   native ``djbio`` MERL and UTIA parsers, HDR decoder and LEAN map
+   builders against numpy and the torch maps on the card (HDR and MERL
+   bit for bit).
 
 Each main path (phases 3-5, the gather path of 7, 8, 9, 11, the
-measured render of 13 and the measured envmap render of 15) runs with
+measured render of 13, the measured envmap render of 15, the UTIA fit
+of 17 and the SGD fit of 18) runs with
 the launch counts of the wrappers set to 0 just before it and read just
 after; each kernel must have launched on its path (the fused fit
 exactly once per step, K4 once per call). The line before the last is a
@@ -202,6 +234,19 @@ N_GATHER = 2 ** 22              # tools/gather_experiments.py:23
 GATHER_ITERS = 20               # its timed() iterations
 RES_TAB = 90                    # the merl_params program's resolution
 N_CLI = 4                       # tables handed to the CLI in phase 10
+# UTIA and the anisotropic path (phase 17): bench.py's sizes
+UTIA_PARAMS = (0.3, 0.15, 0.4)  # MicrofacetParams.elliptic, bench.py:654-659
+N_UTIA = 2 ** 23                # utia_eval's directions
+N_UTIA_FIT = 2 ** 22
+N_SLICE = 2 ** 16               # the CPU path's share of the card's work
+UTIA_FIT_STEPS = 200
+RES_ANISO = 90                  # aniso_fit90_wall_seconds, bench.py:648-669
+UTIA_RES, UTIA_SPP = 256, 8
+SGD_STEPS = 300                 # phase 18's fit_materials on SGD targets
+# a direction within an ulp of a pole or a bin edge evaluates differently
+# on the card and on the CPU (arccos near 1 is ill conditioned in f32):
+# at most this share of evaluations may stray beyond the tolerance
+EVAL_MAX_FLIPS = 1e-3
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # Bounds: published peaks of one H100 SXM (NVIDIA's data sheet), HBM
 # bytes/s and f32 operations/s outside the tensor cores.
@@ -735,7 +780,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     counting = start_sass_counts(_build)
     probing = start_probe_build(_build)
-    _build.build_all(["fused_fit", "merl_gather", "fused_fit_ad", "alias"])
+    _build.build_all(["fused_fit", "merl_gather", "fused_fit_ad", "alias",
+                      "djbio"])
     ff._lib()
     mg._lib()
     ff._lib_ad()
@@ -746,7 +792,8 @@ def main(argv=None):
                    if "registers" in ln or "spill" in ln]
             for name in ("fused_fit", "merl_gather", "fused_fit_ad")}
     nvcc_s = {k: round(v, 2) for k, v in _build.BUILD_SECONDS.items()}
-    log(f"phase 1 build: {build_s:.1f} s (nvcc, g++ for alias: {nvcc_s}); "
+    log(f"phase 1 build: {build_s:.1f} s (nvcc, g++ for alias and djbio: "
+        f"{nvcc_s}); "
         + " | ".join(r for name in regs for r in regs[name]))
     log(f"phase 1 f32 operations per evaluation, counted in the SASS: {ops}")
     results["build_s"] = build_s
@@ -942,6 +989,8 @@ def main(argv=None):
     phase14_ab(args.baseline, args.seed, results)
     measured_lookups += phase15_envmap(mg, ff, table0, results)
     phase16_matpreview(results)
+    launches["ggx"] += phase17_utia(mg, ff, dgen, results)
+    launches["ggx"] += phase18_sgd_abc_native(mg, ff, i, o, results)
     main_launches = dict(launches)
     main_launches["merl_lookup"] = (results["merl_fit"]["launches_lookup"]
                                     + lookup_launches + measured_lookups)
@@ -2054,6 +2103,545 @@ def phase16_matpreview(results):
                        for k, g in grads.items()}
     out["backward"]["wall_s"] = bwd_s
     results["matpreview"] = out
+
+
+def within(name, got, want, rtol, atol=0.0, max_share=0.0):
+    """``got`` (the card's) against ``want`` (the CPU path's): at most
+    ``max_share`` of the entries beyond ``atol + rtol * |want|``; returns
+    the max abs error and the share beyond."""
+    got = got.detach().cpu().double()
+    want = torch.as_tensor(want).detach().cpu().double()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} on the card, "
+                             f"{tuple(want.shape)} on the CPU")
+    diff = (got - want).abs()
+    share = float((diff > atol + rtol * want.abs()).double().mean())
+    err = float(diff.max()) if diff.numel() else 0.0
+    if not torch.isfinite(got).all() or share > max_share:
+        raise AssertionError(f"{name}: the card disagrees with the CPU path "
+                             f"(max abs err {err:.3e}, {share:.3e} of the "
+                             f"entries beyond rtol {rtol} + atol {atol:.3e})")
+    return err, share
+
+
+def utia_ggx_eval(device):
+    """bench.py's analytic anisotropic GGX with Ideal Fresnel
+    (bench.py:654-659), on ``device``."""
+    from dj_brdf_torch import fresnel
+    from dj_brdf_torch.microfacet import brdf
+    from dj_brdf_torch.microfacet.ndf import GGX
+    from dj_brdf_torch.microfacet.params import MicrofacetParams
+
+    p = MicrofacetParams.elliptic(*(torch.tensor(x, device=device)
+                                    for x in UTIA_PARAMS))
+
+    def eval_fn(i, o):
+        return brdf.eval(GGX(), fresnel.Ideal(), p, i, o)
+    return eval_fn
+
+
+def to_device(obj, device):
+    """A frozen dataclass (distribution, Fresnel, parameters) with its
+    tensor fields on ``device``."""
+    import dataclasses
+
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(device)
+        for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+def tables_within(label, card, cpu):
+    """The eight tables of two ``TabularAnisotropic`` at the JAX tests'
+    tolerance (rtol 1e-4, tests/test_render_fit_parallel.py:124-144); a
+    qf entry comes from ``searchsorted`` on spline values, so an ulp may
+    move it by one grid step 1/(8 cnt): exactly that is allowed, and
+    counted. Returns the max relative error and the moved entries."""
+    rel, moved = 0.0, 0
+    for name in ("p22", "sigma", "pdf1", "cdf1", "pdf2", "cdf2"):
+        a, b = getattr(card, name), getattr(cpu, name)
+        err, _ = within(f"{label} {name}", a, b, 1e-4,
+                        1e-4 * float(b.abs().max()))
+        rel = max(rel, err / max(float(b.abs().max()), 1e-30))
+    for name in ("qf1_table", "qf2_table"):
+        a = getattr(card, name).detach().cpu().double()
+        b = getattr(cpu, name).detach().double()
+        step = 1.0 / (8 * (b.shape[-1] - 1))
+        d = (a - b).abs()
+        off = (d - step).abs() <= 1e-6
+        if not bool(((d <= 1e-6) | off).all()):
+            raise AssertionError(f"{label} {name}: the card disagrees with "
+                                 f"the CPU path by more than one grid step "
+                                 f"(max abs err {float(d.max()):.3e})")
+        moved += int((off & (d > 1e-6)).sum())
+    return rel, moved
+
+
+def phase17_utia(mg, ff, dgen, results):
+    """UTIA data and the anisotropic path at bench.py's sizes: bake, file
+    and parsers, ``Utia.evalp`` and its row gather, ``nrm_utia``, the
+    90x90 anisotropic tabulation and its moment fits, ``fit_lsq`` (K1)
+    on UTIA targets and renders of ``utia_fit`` and ``utia_tab``.
+    Returns K1's launches on its main path."""
+    import numpy as np
+
+    from dj_brdf_torch.fit import moments, tabular_aniso
+    from dj_brdf_torch.fit.batch import sample_direction_set
+    from dj_brdf_torch.fit.lsq import fit_lsq
+    from dj_brdf_torch.io.synth import bake_utia
+    from dj_brdf_torch.io.utia_io import load_utia, save_utia
+    from dj_brdf_torch.microfacet.ndf import GGX, Beckmann
+    from dj_brdf_torch.microfacet.params import MicrofacetParams
+    from dj_brdf_torch.models import utia as utia_mod
+    from dj_brdf_torch.models.lambert import Lambert
+    from dj_brdf_torch.render import pathtrace
+    from dj_brdf_torch.render.materials import MicrofacetMaterial
+
+    out = {}
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    # -- bake on the card, write, read through both parsers
+    eval_fn = utia_ggx_eval("cuda")
+    t0 = time.perf_counter()
+    raw = bake_utia(eval_fn)
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    bake_err, _ = within("phase 17 bake_utia", raw, bake_utia(
+        utia_ggx_eval("cpu"), device="cpu"), 1e-4, 1e-6 * float(raw.max()))
+    path = os.path.join(tmp.name, "ggx.bin")
+    save_utia(path, raw)
+    t0 = time.perf_counter()
+    native = load_utia(path)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = load_utia(path, use_native=False)
+    numpy_s = time.perf_counter() - t0
+    if not np.allclose(native, plain, rtol=1e-6, atol=0.0):
+        raise AssertionError("phase 17: the native UTIA parser disagrees "
+                             "with numpy beyond rtol 1e-6")
+    table = torch.from_numpy(native).cuda()
+    log(f"phase 17 bake_utia GGX elliptic{UTIA_PARAMS} on the card: "
+        f"{bake_s:.4f} s, max abs err vs the CPU bake {bake_err:.3e}; "
+        f"load_utia native {native_s:.4f} s, numpy {numpy_s:.4f} s, max "
+        f"abs diff {float(np.abs(native - plain).max()):.3e}")
+    out["bake"] = {"s": bake_s, "max_abs_err_vs_cpu": bake_err,
+                   "load_native_s": native_s, "load_numpy_s": numpy_s}
+
+    # -- Utia.build and evalp at N = 2^23, its row gather
+    t0 = time.perf_counter()
+    u = utia_mod.Utia.build(table)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    i, o = sample_direction_set(N_UTIA, dgen, "cuda")
+    with torch.no_grad():
+        vals = u.evalp(i, o)
+        ms = min(cuda_ms(lambda: u.evalp(i, o), 5) for _ in range(2))
+        prof = profile_frame(lambda: u.evalp(i, o))
+        row, _, _ = utia_mod.corner_taps(i, o)
+        packed = u.packed
+        lane = torch.arange(packed.shape[1], device="cuda")
+        forms = {"index_select": lambda: packed.index_select(0, row),
+                 "indexing": lambda: packed[row],
+                 "take": lambda: torch.take(packed, row[:, None]
+                                            * packed.shape[1] + lane),
+                 "gather_rows (in use)": lambda: utia_mod.gather_rows(
+                     packed, row)}
+        want = forms["indexing"]()
+        for name, fn in forms.items():
+            exact(f"phase 17 gather {name}", fn(), want)
+        del want
+        gather_ms = {name: [] for name in forms}
+        for name in [*forms, *reversed(forms)]:      # in turns
+            gather_ms[name].append(cuda_ms(forms[name], 5))
+        del row
+    cpu_err, cpu_share = within(
+        "phase 17 Utia.evalp", vals[:N_SLICE],
+        utia_mod.Utia.build(table.cpu()).evalp(i[:N_SLICE].cpu(),
+                                               o[:N_SLICE].cpu()),
+        1e-4, 1e-6 * float(vals.abs().max()), EVAL_MAX_FLIPS)
+    nbytes = 36 * N_UTIA + packed.numel() * packed.element_size()
+    b_ms, _ = bound(nbytes, 0)
+    fastest = min(gather_ms, key=lambda k: min(gather_ms[k]))
+    log(f"phase 17 Utia.build {build_s:.4f} s; evalp N={N_UTIA}: {ms:.3f} "
+        f"ms, {N_UTIA / (ms * 1e-3):.4g} evals/s, byte bound {b_ms:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB), {b_ms / ms:.2%} of it; {prof['kernels']} "
+        f"kernels, device busy {prof['device_busy_ms']:.3f} ms, largest "
+        f"{prof['largest_kernel']} {prof['largest_kernel_ms']:.3f} ms; vs "
+        f"CPU on {N_SLICE}: max abs err {cpu_err:.3e}, {cpu_share:.2e} "
+        f"beyond; row gather of (N, 48) in turns (ms): "
+        f"{ {k: [round(x, 4) for x in v] for k, v in gather_ms.items()} }, "
+        f"fastest {fastest}, bit for bit")
+    out["evalp"] = {"ms": ms, "evals_per_s": N_UTIA / (ms * 1e-3),
+                    "bound_ms": b_ms, "profile": prof,
+                    "cpu_max_abs_err": cpu_err, "cpu_share_beyond": cpu_share,
+                    "gather_ms": gather_ms, "gather_fastest": fastest}
+    del vals, i, o
+
+    # -- nrm_utia on the card in a subprocess, default grid
+    bakes = {"ggx.bin": raw}
+    for name, albedo in (("lambert-0.7.bin", 0.7), ("lambert-3.0.bin", 3.0)):
+        bakes[name] = bake_utia(Lambert(reflectance=torch.full(
+            (3,), albedo, device="cuda")).eval)
+    for name, t in bakes.items():
+        save_utia(os.path.join(tmp.name, name), t)
+
+    def nrm_utia(*names):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dj_brdf_torch.cli.nrm_utia", "--device",
+             "cuda", *(os.path.join(tmp.name, n) for n in names)], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        verdicts = re.findall(r"=> (ok|FAILURE) \(max integral ([0-9.]+)\)",
+                              proc.stdout)
+        if proc.returncode not in (0, 1) or len(verdicts) != len(names):
+            raise AssertionError(f"phase 17: nrm_utia exited "
+                                 f"{proc.returncode}:\n{proc.stdout}\n"
+                                 f"{proc.stderr}")
+        return proc.returncode, wall, {n: (v, float(x)) for n, (v, x)
+                                       in zip(names, verdicts)}
+
+    rc, wall, verdicts = nrm_utia("ggx.bin", "lambert-0.7.bin")
+    rc_hot, wall_hot, hot = nrm_utia("lambert-3.0.bin")
+    log(f"phase 17 nrm_utia --device cuda (64x256 outgoing x 64x256 "
+        f"incoming, 268M evals a file): GGX bake and 0.7 Lambert bake exit "
+        f"{rc} in {wall:.2f} s {verdicts}; 3.0 Lambert bake exit {rc_hot} "
+        f"in {wall_hot:.2f} s {hot}")
+    if (verdicts["lambert-0.7.bin"][0] != "ok" or rc_hot != 1
+            or rc != (0 if verdicts["ggx.bin"][0] == "ok" else 1)):
+        raise AssertionError("phase 17: nrm_utia's verdicts are wrong")
+    out["nrm_utia"] = {"exit": rc, "wall_s": wall, "verdicts": verdicts,
+                       "hot_exit": rc_hot, "hot_wall_s": wall_hot}
+    tmp.cleanup()
+
+    # -- the 90x90 anisotropic tabulation on the card
+    def build(model, device="cuda"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist, fres = tabular_aniso.build_tabular_anisotropic(
+            model, RES_ANISO, RES_ANISO, device=device)
+        float(dist.p22.sum())                  # as bench.py:664 syncs
+        return dist, fres, time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    before_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build(eval_fn)                             # warm
+    runs = [build(eval_fn) for _ in range(2)]
+    peak_gb = (torch.cuda.max_memory_allocated() - before_bytes) / 1e9
+    dist_a, fres_a, _ = runs[0]
+    wall_a = min(r[2] for r in runs)
+    dist_u, fres_u, wall_u = build(u)
+    t0 = time.perf_counter()
+    cpu_a, cfres_a, _ = build(utia_ggx_eval("cpu"), "cpu")
+    cpu_u, cfres_u, _ = build(utia_mod.Utia.build(table.cpu()))
+    cpu_s = time.perf_counter() - t0
+    rel_a, moved_a = tables_within("phase 17 analytic 90x90", dist_a, cpu_a)
+    rel_u, moved_u = tables_within("phase 17 UTIA 90x90", dist_u, cpu_u)
+    for label, f, cf in (("analytic", fres_a, cfres_a),
+                         ("UTIA", fres_u, cfres_u)):
+        within(f"phase 17 {label} Fresnel points", f.points, cf.points, 1e-4,
+               1e-5)
+    n = (RES_ANISO - 1) * RES_ANISO
+    a_mat = torch.rand((n, n), generator=dgen, device="cuda")
+    v = torch.ones(n, device="cuda")
+
+    def four():
+        w = v
+        for _ in range(4):
+            w = a_mat @ w
+        return w
+
+    four()
+    mv_ms = min(cuda_ms(four, 25) for _ in range(2)) / 4
+    mv_bound, _ = bound(4 * n * n + 8 * n, 2 * n * n)
+    del a_mat
+    log(f"phase 17 build_tabular_anisotropic {RES_ANISO}x{RES_ANISO} (n = "
+        f"{n}, device f32 power stage): analytic GGX "
+        f"aniso_fit90_wall_seconds {wall_a:.4f} (best of 2 after a warm "
+        f"run: {[round(r[2], 4) for r in runs]}), UTIA {wall_u:.4f} s; peak "
+        f"{peak_gb:.3f} GB above the {before_bytes / 1e9:.3f} GB held "
+        f"before (max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+        f" GB); vs the CPU path ({cpu_s:.2f} s for both): max rel err "
+        f"{rel_a:.3e} / {rel_u:.3e}, qf entries one grid step off "
+        f"{moved_a} / {moved_u} of {2 * RES_ANISO * RES_ANISO}; "
+        f"power_iteration_matvecs_per_s_n8010 {1e3 / mv_ms:.4g} "
+        f"({mv_ms:.4f} ms a matvec, byte bound {mv_bound:.4f} ms, "
+        f"{mv_bound / mv_ms:.1%} of it)")
+    out["aniso"] = {"aniso_fit90_wall_seconds": wall_a,
+                    "walls_s": [r[2] for r in runs], "utia_wall_s": wall_u,
+                    "peak_gb_above": peak_gb,
+                    "max_memory_allocated_gb":
+                        torch.cuda.max_memory_allocated() / 1e9,
+                    "max_rel_err_vs_cpu": [rel_a, rel_u],
+                    "qf_moved": [moved_a, moved_u], "cpu_s": cpu_s,
+                    "matvecs_per_s": 1e3 / mv_ms, "matvec_ms": mv_ms,
+                    "matvec_bound_ms": mv_bound}
+
+    # -- the anisotropic moment fits, card against the CPU path
+    fits = {}
+    for label, card, cpu in (("analytic", dist_a, cpu_a),
+                             ("UTIA", dist_u, cpu_u)):
+        for fit in (moments.fit_beckmann_parameters_anisotropic,
+                    moments.fit_ggx_parameters_anisotropic):
+            got, want = fit(card), fit(cpu)
+            vals = {}
+            for f in ("ax", "ay", "rho", "txn", "tyn"):
+                within(f"phase 17 {label} {fit.__name__} {f}",
+                       torch.as_tensor(getattr(got, f)),
+                       torch.as_tensor(getattr(want, f)), 1e-4, 1e-6)
+                vals[f] = float(getattr(got, f))
+            fits[f"{label} {fit.__name__}"] = vals
+    log(f"phase 17 moment fits on the card, within rtol 1e-4 of the CPU "
+        f"path: { {k: {f: round(x, 5) for f, x in v.items()} for k, v in fits.items()} }")
+    out["moments"] = fits
+
+    # -- fit_lsq (K1) on UTIA targets
+    i2, o2 = sample_direction_set(N_UTIA_FIT, dgen, "cuda")
+    with torch.no_grad():
+        target = u.evalp(i2, o2)
+    torch.cuda.synchronize()
+    reset_counts(mg, ff)
+    with StepTimer() as timer:
+        t0 = time.perf_counter()
+        params, fres, losses = fit_lsq(GGX(), i2, o2, target,
+                                       steps=UTIA_FIT_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = ff.LAUNCHES
+    step_ms = timer.median_ms()
+    sl = slice(0, N_SLICE)
+    _, _, card_losses = fit_lsq(GGX(), i2[sl], o2[sl], target[sl], steps=50)
+    _, _, cpu_losses = fit_lsq(GGX(), i2[sl].cpu(), o2[sl].cpu(),
+                               target[sl].cpu(), steps=50)
+    traj_err, _ = within("phase 17 fit_lsq trajectory", card_losses,
+                         cpu_losses, 1e-4, 1e-7)
+    log(f"phase 17 fit_lsq GGX on Utia.evalp targets N={N_UTIA_FIT} "
+        f"{UTIA_FIT_STEPS} steps: {wall:.2f} s, median step {step_ms:.3f} "
+        f"ms, launches {launched}, loss {float(losses[0]):.4e} -> "
+        f"{float(losses[-1]):.4e}, ax {float(params.ax):.4f} ay "
+        f"{float(params.ay):.4f} rho {float(params.rho):.4f}; card vs CPU "
+        f"at N={N_SLICE} over 50 steps: max abs loss err {traj_err:.3e}")
+    if launched != UTIA_FIT_STEPS:
+        raise AssertionError(f"phase 17: {launched} kernel launches for "
+                             f"{UTIA_FIT_STEPS} fit_lsq steps")
+    if not (torch.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError("phase 17: the fit on UTIA targets did not "
+                             "lower its loss")
+    out["fit_lsq"] = {"wall_s": wall, "median_step_ms": step_ms,
+                      "launches": launched, "first_loss": float(losses[0]),
+                      "last_loss": float(losses[-1]),
+                      "cpu_traj_max_abs_err": traj_err}
+    del i2, o2, target
+
+    # -- renders of utia_fit's and utia_tab's materials
+    p_fit = moments.fit_beckmann_parameters_anisotropic(dist_u)
+    materials = {
+        "utia_fit": lambda dev: MicrofacetMaterial(
+            Beckmann(), to_device(fres_u, dev), to_device(p_fit, dev)),
+        "utia_tab": lambda dev: MicrofacetMaterial(
+            dist=to_device(dist_u, dev), fres=to_device(fres_u, dev),
+            params=to_device(MicrofacetParams.standard(), dev))}
+    out["render"] = {}
+    for label, make in materials.items():
+        sphere, floor_mat = make("cuda"), pt_scene("ggx", "cuda")[1]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def frame():
+            return pathtrace.render(sphere, floor_mat, PT_LIGHT, PT_LIGHT_RAD,
+                                    PT_SKY, res=UTIA_RES, spp=UTIA_SPP,
+                                    max_bounces=PT_BOUNCES, generator=gen)
+
+        with torch.no_grad():
+            img = frame()
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                img = frame()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            prof = profile_frame(frame)
+        ms = statistics.median(walls)
+        res, spp = 32, 4
+        u_small = torch.rand((PT_BOUNCES, res * res * spp, 2),
+                             generator=torch.Generator().manual_seed(1))
+        small = {dev: pathtrace.render(
+            make(dev), pt_scene("ggx", dev)[1], PT_LIGHT, PT_LIGHT_RAD,
+            PT_SKY, res=res, spp=spp, max_bounces=PT_BOUNCES,
+            u=u_small.to(dev)).cpu() for dev in ("cuda", "cpu")}
+        diff = (small["cuda"] - small["cpu"]).abs()
+        flips = int((diff > PT_ATOL + PT_RTOL * small["cpu"].abs()).any(-1)
+                    .sum())
+        finite = bool(torch.isfinite(img).all())
+        log(f"phase 17 render {label} sphere / GGX floor res {UTIA_RES} spp "
+            f"{UTIA_SPP} {PT_BOUNCES} bounces (generic loop): median frame "
+            f"{ms:.3f} ms of 3 ({[round(w, 3) for w in walls]}), "
+            f"{UTIA_RES * UTIA_RES * UTIA_SPP / (ms * 1e-3):.4g} samples/s, "
+            f"{prof['kernels']} kernels, device busy "
+            f"{prof['device_busy_ms']:.3f} ms, largest {prof['largest_kernel']}"
+            f" {prof['largest_kernel_ms']:.3f} ms; mean {float(img.mean()):.5f}"
+            f", finite {finite}; card vs CPU res {res} spp {spp}: max abs err "
+            f"{float(diff.max()):.3e}, {flips} of {res * res} pixels beyond "
+            f"tolerance (allowed {int(PT_MAX_FLIPS * res * res)})")
+        if not (finite and float(img.mean()) > 0.0
+                and flips <= PT_MAX_FLIPS * res * res):
+            raise AssertionError(f"phase 17 {label}: the frame is not finite "
+                                 "or disagrees with the CPU path")
+        out["render"][label] = {"median_frame_ms": ms, "frames_ms": walls,
+                                "profile": prof, "mean": float(img.mean()),
+                                "cpu_parity_flips": flips,
+                                "cpu_parity_max_abs_err": float(diff.max())}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 17 wall {out['wall_s']:.1f} s")
+    results["utia"] = out
+    return launched
+
+
+def stack_evalp(model, i, o, count=None, chunk=8):
+    """(M, N, 3) ``evalp`` of the first ``count`` (default: every)
+    materials of a stacked SGD or ABC model at the shared directions, a
+    few materials at a time, as ``targets_for`` chunks."""
+    import dataclasses
+
+    leaves = {f.name: getattr(model, f.name)
+              for f in dataclasses.fields(model)}
+    m = count or next(iter(leaves.values())).shape[0]
+    out = torch.empty((m, i.shape[0], 3), device=i.device)
+    for k in range(0, m, chunk):
+        part = type(model)(**{name: x[k:min(k + chunk, m), None]
+                              for name, x in leaves.items()})
+        out[k:k + chunk] = part.evalp(i, o)
+    return out
+
+
+def phase18_sgd_abc_native(mg, ff, i, o, results):
+    """SGD and ABC at MERL scale, ``fit_materials`` (K3) on the SGD
+    targets, and the native ``djbio`` parsers and map builders against
+    the numpy and torch versions. Returns K3's launches on its main
+    path."""
+    import numpy as np
+
+    from dj_brdf_torch.fit.batch import fit_materials
+    from dj_brdf_torch.io import hdr, native
+    from dj_brdf_torch.io.merl_io import load_merl, save_merl
+    from dj_brdf_torch.io.utia_io import load_utia, save_utia
+    from dj_brdf_torch.lean import maps
+    from dj_brdf_torch.models.abc_model import ABC
+    from dj_brdf_torch.models.sgd import SGD
+
+    out = {}
+    t_phase = time.perf_counter()
+    n = i.shape[0]
+    targets = {}
+    for name, model in (("SGD", SGD), ("ABC", ABC)):
+        stacked = model.all_materials()
+        with torch.no_grad():
+            t = stack_evalp(stacked, i, o)
+            ms = cuda_ms(lambda: stack_evalp(stacked, i, o), 3)
+        m = t.shape[0]
+        err, share = within(
+            f"phase 18 {name}.evalp", t[:4],
+            stack_evalp(model.all_materials(device="cpu"), i.cpu(), o.cpu(),
+                        count=4), 1e-4, 1e-6 * float(t[:4].abs().max()),
+            EVAL_MAX_FLIPS)
+        log(f"phase 18 {name}.all_materials().evalp at {m} x {n}: {ms:.3f} "
+            f"ms, {m * n / (ms * 1e-3):.4g} evals/s, finite "
+            f"{bool(torch.isfinite(t).all())}; vs CPU on 4 materials max abs "
+            f"err {err:.3e}, {share:.2e} beyond")
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"phase 18: {name} evaluations not finite")
+        out[name] = {"ms": ms, "evals_per_s": m * n / (ms * 1e-3),
+                     "cpu_max_abs_err": err, "cpu_share_beyond": share}
+        targets[name] = t
+    del targets["ABC"]
+
+    # -- fit_materials (K3) on the 100 SGD targets
+    sgd_t = targets.pop("SGD")
+    _, _, first = fit_materials(sgd_t, i, o, steps=1)
+    torch.cuda.synchronize()
+    reset_counts(mg, ff)
+    with StepTimer() as timer:
+        t0 = time.perf_counter()
+        params, fres, losses = fit_materials(sgd_t, i, o, steps=SGD_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = ff.LAUNCHES
+    step_ms = timer.median_ms()
+    fell = int((losses < first).sum())
+    log(f"phase 18 fit_materials GGX on the {sgd_t.shape[0]} SGD targets x "
+        f"{n} {SGD_STEPS} steps: {wall:.2f} s, median step {step_ms:.3f} ms, "
+        f"launches {launched}, losses fell for {fell} of {losses.numel()} "
+        f"(median {float(first.median()):.4e} -> "
+        f"{float(losses.median()):.4e}, max {float(losses.max()):.4e})")
+    if launched != SGD_STEPS:
+        raise AssertionError(f"phase 18: {launched} kernel launches for "
+                             f"{SGD_STEPS} fit_materials steps")
+    if not (torch.isfinite(losses).all() and fell == losses.numel()):
+        raise AssertionError("phase 18: a material's loss is not finite or "
+                             "did not fall")
+    out["fit_materials"] = {"wall_s": wall, "median_step_ms": step_ms,
+                            "launches": launched,
+                            "median_first_loss": float(first.median()),
+                            "median_last_loss": float(losses.median()),
+                            "max_last_loss": float(losses.max())}
+    del sgd_t
+
+    # -- the native djbio library against numpy and torch
+    rng = np.random.default_rng(0)
+    checks, secs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def timed(key, fn):
+            t0 = time.perf_counter()
+            value = fn()
+            secs[key] = time.perf_counter() - t0
+            return value
+
+        p = os.path.join(tmp, "m.binary")
+        save_merl(p, rng.uniform(0, 2, (3, 90, 90, 180)))
+        a = timed("merl_native", lambda: load_merl(p))
+        b = timed("merl_numpy", lambda: load_merl(p, use_native=False))
+        checks["merl"] = bool(np.array_equal(a, b))
+        p = os.path.join(tmp, "u.bin")
+        save_utia(p, rng.uniform(-0.5, 3, (3, 6, 48, 6, 48)))
+        a, b = load_utia(p), load_utia(p, use_native=False)
+        checks["utia"] = bool(np.allclose(a, b, rtol=1e-6, atol=0.0)
+                              and a.min() >= 0.0)
+        img = (rng.uniform(0, 1, (256, 512, 3)) ** 2 * 30).astype(np.float32)
+        p = os.path.join(tmp, "probe.hdr")
+        hdr.write_hdr(p, img)
+        a = timed("hdr_native", lambda: native.load_hdr(p))
+        b = timed("hdr_numpy", lambda: hdr.load_hdr(p))
+        checks["hdr"] = bool(np.array_equal(a, b))
+    dmap = rng.uniform(0, 1, (512, 512)).astype(np.float32)
+    for clamp in (False, True):
+        a = native.dmap_to_nmap(dmap, 0.05, clamp)
+        b = maps.dmap_to_nmap(torch.from_numpy(dmap).cuda(), 0.05, clamp)
+        checks[f"dmap_to_nmap clamp={clamp}"] = bool(np.allclose(
+            a, b.cpu().numpy(), rtol=0.0, atol=1e-6))
+    nmap = native.dmap_to_nmap(dmap, 0.1)
+    lean = native.nmap_to_lean(nmap, 0.05, 25.0)
+    want = maps.nmap_to_lean(torch.from_numpy(nmap).cuda(), 0.05, 25.0)
+    planes = (want.E1, want.E2, want.E3, want.E4, want.E5)
+    checks["nmap_to_lean"] = all(np.allclose(
+        lean[k], x.cpu().numpy(), rtol=1e-5, atol=1e-5)
+        for k, x in enumerate(planes))
+    red = native.lean_mip_reduce(lean)
+    want = maps.mip_reduce(want)
+    checks["lean_mip_reduce"] = all(np.allclose(
+        red[k], x.cpu().numpy(), rtol=1e-5, atol=1e-5)
+        for k, x in enumerate((want.E1, want.E2, want.E3, want.E4, want.E5)))
+    log(f"phase 18 native djbio against numpy and torch on the card: "
+        f"{checks}; host seconds { {k: round(v, 4) for k, v in secs.items()} }")
+    if not all(checks.values()):
+        raise AssertionError("phase 18: the native library disagrees with "
+                             "the numpy or torch version")
+    out["native"] = {"checks": checks, "host_s": secs}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 18 wall {out['wall_s']:.1f} s")
+    results["sgd_abc_native"] = out
+    return launched
 
 
 def ab_times(root, seed):

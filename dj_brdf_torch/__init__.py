@@ -10,11 +10,14 @@ kernel, and the ``fit_lsq`` / ``fit_materials`` fitters), and measured
 data with its tabulation (MERL file I/O, the ``Merl`` model with its
 lookup kernel, synthetic baking, the ``Tabular`` distribution, the
 power-iteration pipeline, moment fits, ``tabulate_merl_batch`` and the
-``merl_params`` program), and the renderer's delta-light path (VNDF
-sampling, the fused SoA samplers, ``render_sphere`` and the ``entry()``
-forward, the renderer materials and ``render.pathtrace.render``), with
-the autodiff cross-check of the fit step (``adjoint="ad"``) and its
-kernel.
+``merl_params`` program), UTIA data and the anisotropic tabulation
+(``Utia``, ``TabularAnisotropic``, ``fit.tabular_aniso``, the
+anisotropic moment fits and the ``nrm_utia`` furnace test), the SGD and
+ABC fits, the native ``djbio`` parsers and Radiance .hdr I/O, and the
+renderer (VNDF sampling, the fused SoA samplers, ``render_sphere`` and
+the ``entry()`` forward, the renderer materials, environment-map MIS,
+textures and LEAN, and ``render.pathtrace.render``), with the autodiff
+cross-check of the fit step (``adjoint="ad"``) and its kernel.
 
 Conventions (match the reference, dj_brdf.h:23-26):
   * ``i`` is the direction toward the light, ``o`` toward the viewer.
@@ -29,10 +32,14 @@ from dj_brdf_torch.core import math as vecmath
 from dj_brdf_torch.core import special, spline
 from dj_brdf_torch import fresnel
 from dj_brdf_torch.microfacet.params import MicrofacetParams
-from dj_brdf_torch.microfacet.ndf import GGX, GGXSphericalCaps, Beckmann, Tabular
+from dj_brdf_torch.microfacet.ndf import (
+    GGX, GGXSphericalCaps, Beckmann, Tabular, TabularAnisotropic)
 from dj_brdf_torch.microfacet import brdf as microfacet
 from dj_brdf_torch.models.lambert import Lambert
 from dj_brdf_torch.models.merl import Merl
+from dj_brdf_torch.models.utia import Utia
+from dj_brdf_torch.models.sgd import SGD
+from dj_brdf_torch.models.abc_model import ABC
 from dj_brdf_torch.render.materials import (
     MicrofacetMaterial, MeasuredMaterial, CosineMaterial, ConductorWrap)
 from dj_brdf_torch import io

@@ -4,8 +4,10 @@ Format (reference merl::merl, dj_brdf.h:963-983): three little-endian
 int32 dims followed by dims[0]*dims[1]*dims[2]*3 float64 samples,
 channel-major (R plane, G plane, B plane).
 
-Counterpart of ``dj_brdf_tpu/io/merl_io.py``. The JAX package's native
-``djbio`` parser is not ported: files are always read with numpy.
+Counterpart of ``dj_brdf_tpu/io/merl_io.py``. With ``use_native=True``
+the file is parsed by the port's ``djbio`` library
+(:mod:`dj_brdf_torch.io.native`); a failed build or parse raises, there
+is no quiet fallback to numpy.
 """
 
 from __future__ import annotations
@@ -15,9 +17,17 @@ import numpy as np
 from dj_brdf_torch.models.merl import PLANE, TABLE_SHAPE
 
 
-def load_merl(path: str, dtype=np.float32) -> np.ndarray:
-    """Load a MERL .binary file -> (3, 90, 90, 180) raw (unscaled) array,
-    read with numpy."""
+def load_merl(path: str, dtype=np.float32,
+              use_native: bool = True) -> np.ndarray:
+    """Load a MERL .binary file -> (3, 90, 90, 180) raw (unscaled) array.
+
+    ``use_native=True`` (float32 only, as in the JAX package) parses with
+    the native ``djbio`` library, built with ``g++`` at first use; its
+    build or parse failing raises. ``use_native=False`` reads with
+    numpy."""
+    if use_native and dtype == np.float32:
+        from dj_brdf_torch.io import native
+        return native.load_merl(path)
     with open(path, "rb") as f:
         dims = np.fromfile(f, dtype="<i4", count=3)
         n = (int(dims[0]) * int(dims[1]) * int(dims[2])

@@ -9,8 +9,9 @@ five moments (a 2x2 mean per level).
 
 Images are float tensors in [0, 1] (or raw moments); the uint8
 quantization of the reference tools lives in the CLI wrappers, so these
-stay differentiable. Counterpart of ``dj_brdf_tpu/lean/maps.py`` (the
-array forms; the native builders come with the native I/O).
+stay differentiable. Counterpart of ``dj_brdf_tpu/lean/maps.py``; the
+native builders of the same maps are :func:`dj_brdf_torch.io.native.
+dmap_to_nmap`, ``nmap_to_lean`` and ``lean_mip_reduce`` (host numpy).
 """
 
 from __future__ import annotations

@@ -2,17 +2,18 @@
 
 Port of the reference's analytic distributions ``djb::beckmann``
 (dj_brdf.h:1863-2051) and ``djb::ggx`` (2053-2146), and of the
-isotropic tabulated one, ``djb::tabular`` (2148-2176). Each
+tabulated ones, ``djb::tabular`` (2148-2176) and
+``djb::tabular_anisotropic`` (2178-2211, 2766-3103). Each
 distribution is a frozen dataclass exposing the *standard-frame*
 interface consumed by :mod:`dj_brdf_torch.microfacet.brdf`:
 
   * ``p22_std(x, y)``            — standard slope PDF
   * ``sigma_std(k)``             — standard projected area (microflake sigma)
   * ``sample_vp22_std(u1, u2, k)`` — visible-slope sampling (Smith VNDF
-    for Beckmann/GGX; NDF ("nmap") sampling for the tabulated one)
+    for Beckmann/GGX; NDF ("nmap") sampling for the tabulated ones)
 
 Everything is branchless (``torch.where`` instead of the reference's
-``if`` trees). ``TabularAnisotropic`` is not ported yet.
+``if`` trees).
 """
 
 from __future__ import annotations
@@ -369,3 +370,96 @@ class Tabular:
 
     def sample_vp22_std(self, u1, u2, k):
         return _sample_nmap_radial(self, u1, u2)
+
+
+def p22_theta_phi(p22, theta, phi):
+    """The slope PDF of an anisotropic (H, W) table at slope angles
+    (theta, phi) (reference tabular_anisotropic::p22_std_theta_phi,
+    dj_brdf.h:2185-2196): a bilinear lookup, edge-clamped in elevation,
+    periodic in azimuth."""
+    phi = torch.where(phi < 0.0, phi + 2.0 * math.pi, phi)
+    u1 = theta * 2.0 / math.pi
+    u2 = phi * 0.5 / math.pi
+    return spline.eval2d(p22, u1, u2, wrap1="edge", wrap2="repeat")
+
+
+@pytree_dataclass
+class TabularAnisotropic:
+    """Anisotropic tabulated distribution (reference
+    djb::tabular_anisotropic, dj_brdf.h:2178-2211, 2766-3103). Tables are
+    produced by :mod:`dj_brdf_torch.fit.tabular_aniso`.
+
+    2D tables are stored as (azimuthal_res, elevation_res), the
+    elevation axis fast, matching the reference's flat
+    ``points[i + w*j]`` layout. Sampling uses the marginal-azimuth /
+    conditional-elevation factorization (pdf1/cdf1/qf1, pdf2/cdf2/qf2).
+    """
+
+    p22: torch.Tensor        # (H=azimuthal, W=elevation)
+    sigma: torch.Tensor      # (H, W)
+    pdf1: torch.Tensor       # (H,)
+    cdf1: torch.Tensor       # (H,)
+    qf1_table: torch.Tensor  # (H,)
+    pdf2: torch.Tensor       # (H, W)
+    cdf2: torch.Tensor       # (H, W)
+    qf2_table: torch.Tensor  # (H, W)
+    supports_smith_vndf: bool = static_field(default=False)
+
+    # -- eval ----------------------------------------------------------
+    def p22_std_theta_phi(self, theta, phi):
+        """(dj_brdf.h:2185-2196)."""
+        return p22_theta_phi(self.p22, theta, phi)
+
+    # pole/origin guards as in Tabular: sqrt/arccos/atan2 have infinite
+    # or 0/0 derivatives exactly where sanitized lanes land (slopes
+    # (0, 0), k = up); the floors keep backward finite at <= 1e-12
+    # value change
+    def p22_std(self, x, y):
+        r2 = x * x + y * y
+        theta = torch.arctan(torch.sqrt(torch.clamp(r2, min=1e-24)))
+        phi = torch.atan2(-y, torch.where(r2 < 1e-24, -1.0, -x))
+        return self.p22_std_theta_phi(theta, phi)
+
+    def sigma_std(self, k):
+        """(dj_brdf.h:2198-2211)."""
+        c = torch.clamp(k[..., 2], -1.0, 1.0)
+        theta = torch.atan2(torch.sqrt(torch.clamp(1.0 - c * c, min=1e-24)),
+                            c)
+        r2 = k[..., 0] * k[..., 0] + k[..., 1] * k[..., 1]
+        phi = torch.atan2(k[..., 1], torch.where(r2 < 1e-24, 1.0, k[..., 0]))
+        phi = torch.where(phi < 0.0, phi + 2.0 * math.pi, phi)
+        u1 = theta * 2.0 / math.pi
+        u2 = phi * 0.5 / math.pi
+        return spline.eval2d(self.sigma, u1, u2, wrap1="edge",
+                             wrap2="repeat")
+
+    # -- sampling tables ----------------------------------------------
+    def pdf1_eval(self, phi):
+        return spline.eval1d(self.pdf1, phi * 0.5 / math.pi, wrap="repeat")
+
+    def cdf1_eval(self, phi):
+        return spline.eval1d(self.cdf1, phi * 0.5 / math.pi, wrap="repeat")
+
+    def qf1_eval(self, u1):
+        return spline.eval1d(self.qf1_table, u1, wrap="edge") * 2.0 * math.pi
+
+    def pdf2_eval(self, theta, phi):
+        val = spline.eval2d(self.pdf2, theta * 2.0 / math.pi,
+                            phi * 0.5 / math.pi, wrap1="edge", wrap2="repeat")
+        return torch.where(theta >= 0.5 * math.pi, 0.0, val)
+
+    def cdf2_eval(self, theta, phi):
+        val = spline.eval2d(self.cdf2, theta * 2.0 / math.pi,
+                            phi * 0.5 / math.pi, wrap1="edge", wrap2="repeat")
+        return torch.where(theta >= 0.5 * math.pi, 1.0, val)
+
+    def qf2_eval(self, u, phi):
+        return spline.eval2d(self.qf2_table, u, phi / (2.0 * math.pi),
+                             wrap1="edge", wrap2="repeat") * 0.5 * math.pi
+
+    def sample_vp22_std(self, u1, u2, k):
+        """Marginal/conditional nmap sampling (dj_brdf.h:2826-2837)."""
+        phi = self.qf1_eval(u1)
+        theta = self.qf2_eval(u2, phi)
+        tan_theta = torch.tan(theta)
+        return -tan_theta * torch.cos(phi), -tan_theta * torch.sin(phi)

@@ -29,7 +29,7 @@ BUILD_DIR = _PKG.parent / "build" / "dj_brdf_torch"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-fopenmp")
 
 #: seconds each library took to build (0.0 when it was already built)
 BUILD_SECONDS: dict[str, float] = {}

@@ -3,7 +3,10 @@ unless the caller asks for the CPU: ``entry()``, ``sample_direction_set``,
 ``bake_merl``, ``raw_init``; ``build_tabular``, ``compute_p22_smith`` and
 ``MeasuredMaterial.from_model`` of a bare eval function; ``render`` of
 materials that hold no tensor; ``render_sphere`` with a light direction
-that is not a tensor; ``EnvMap.build`` of a numpy image. Called without a device they put their tensors on
+that is not a tensor; ``EnvMap.build`` of a numpy image; ``bake_utia``,
+``build_tabular_anisotropic`` and ``kernel_matrix`` of a bare eval
+function, ``furnace_test``, ``SGD`` and ``ABC``'s ``from_name`` and
+``all_materials``. Called without a device they put their tensors on
 the card, and on a machine without one they raise; they never quietly
 fall back to the CPU. Whether there is a card is decided inside each
 test."""
@@ -17,13 +20,16 @@ import torch
 
 from dj_brdf_torch import fresnel
 from dj_brdf_torch.entry import entry
-from dj_brdf_torch.fit import tabular
+from dj_brdf_torch.fit import tabular, tabular_aniso
 from dj_brdf_torch.fit.batch import sample_direction_set
 from dj_brdf_torch.fit.lsq import raw_init
-from dj_brdf_torch.io.synth import bake_merl
+from dj_brdf_torch.io.synth import bake_merl, bake_utia
 from dj_brdf_torch.microfacet import brdf
 from dj_brdf_torch.microfacet.ndf import GGX
 from dj_brdf_torch.microfacet.params import MicrofacetParams
+from dj_brdf_torch.models.abc_model import ABC
+from dj_brdf_torch.models.sgd import SGD
+from dj_brdf_torch.parallel.integrals import furnace_test
 from dj_brdf_torch.render import pathtrace
 from dj_brdf_torch.render.envmap import EnvMap
 from dj_brdf_torch.render.materials import CosineMaterial, MeasuredMaterial
@@ -56,6 +62,29 @@ class Grey:
 
 def tensors_of_tabular(dist):
     return [dist.p22, dist.sigma, dist.cdf, dist.qf]
+
+
+def tensors_of_aniso(dist):
+    return [dist.p22, dist.sigma, dist.pdf1, dist.qf2_table]
+
+
+def furnace(**kw):
+    """The directions ``furnace_test`` integrates over."""
+    seen = []
+
+    def evalp(i, o):
+        seen.append(i)
+        return Grey().evalp(i, o)
+
+    furnace_test(evalp, 2, 2, **kw)
+    return seen[:1]
+
+
+def abc_leaves(abc):
+    return [abc.kd, abc.a, abc.b, abc.c, abc.ior]
+
+
+SGD_NAME = "gold-metallic-paint"
 
 
 def proxy_of(material):
@@ -91,6 +120,15 @@ DEFAULTS = {
     "render": grey_render,
     "render_sphere": lambda: [render_sphere(ggx_evalp, LIGHT, res=8)],
     "raw_init": lambda: list(raw_init()),
+    "bake_utia": lambda: [bake_utia(ggx_eval)],
+    "build_tabular_anisotropic": lambda: tensors_of_aniso(
+        tabular_aniso.build_tabular_anisotropic(ggx_eval, 5, 6)[0]),
+    "kernel_matrix": lambda: [tabular_aniso.kernel_matrix(ggx_eval, 5, 6)],
+    "furnace_test": furnace,
+    "sgd": lambda: [SGD.from_name(SGD_NAME).params,
+                    SGD.all_materials().params],
+    "abc": lambda: abc_leaves(ABC.from_name(SGD_NAME))
+    + abc_leaves(ABC.all_materials()),
 }
 
 ON_THE_CPU = {
@@ -109,6 +147,17 @@ ON_THE_CPU = {
     "render_sphere": lambda: [render_sphere(ggx_evalp, LIGHT, res=8,
                                             device="cpu")],
     "raw_init": lambda: list(raw_init(device="cpu")),
+    "bake_utia": lambda: [bake_utia(ggx_eval, "cpu")],
+    "build_tabular_anisotropic": lambda: tensors_of_aniso(
+        tabular_aniso.build_tabular_anisotropic(ggx_eval, 5, 6,
+                                                device="cpu")[0]),
+    "kernel_matrix": lambda: [tabular_aniso.kernel_matrix(
+        ggx_eval, 5, 6, device="cpu")],
+    "furnace_test": lambda: furnace(device="cpu"),
+    "sgd": lambda: [SGD.from_name(SGD_NAME, device="cpu").params,
+                    SGD.all_materials(device="cpu").params],
+    "abc": lambda: abc_leaves(ABC.from_name(SGD_NAME, device="cpu"))
+    + abc_leaves(ABC.all_materials(device="cpu")),
 }
 
 

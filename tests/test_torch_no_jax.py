@@ -37,7 +37,24 @@ SLICE_MODULES = [
     "dj_brdf_torch.render.envmap", "dj_brdf_torch.lean",
     "dj_brdf_torch.lean.lrep", "dj_brdf_torch.lean.maps",
     "dj_brdf_torch.lean.filtered",
+    # slice 8: UTIA, anisotropic tabulation, SGD/ABC, native I/O
+    "dj_brdf_torch.models.utia", "dj_brdf_torch.io.utia_io",
+    "dj_brdf_torch.parallel", "dj_brdf_torch.parallel.integrals",
+    "dj_brdf_torch.cli.nrm_utia", "dj_brdf_torch.fit.tabular_aniso",
+    "dj_brdf_torch.models.sgd", "dj_brdf_torch.models.abc_model",
+    "dj_brdf_torch.io.native", "dj_brdf_torch.io.hdr",
 ]
+
+
+def test_port_reads_no_file_of_the_jax_package():
+    """The port keeps its own copies (the SGD/ABC tables, the native
+    sources): no source of it names the JAX package's directory as a
+    path."""
+    for path in PKG.rglob("*"):
+        if path.suffix in (".py", ".cpp", ".cu"):
+            text = path.read_text()
+            assert not re.search(r"files\(\s*[\"']dj_brdf_tpu", text), path
+            assert not re.search(r"[\"']dj_brdf_tpu/", text), path
 
 
 def test_importing_the_port_loads_no_jax():
