@@ -2,14 +2,20 @@
 """Drive the PyTorch/CUDA port's main paths on one GPU: the fitting step,
 measured MERL data through tabulation to fitted roughness, the autodiff
 cross-check of the fit step, rendering, UTIA data through the
-anisotropic tabulation to a fit and a render, and the SGD/ABC fits with
-the native file I/O.
+anisotropic tabulation to a fit and a render, the SGD/ABC fits with
+the native file I/O, the MERL lookup's backward, the sharded paths over
+an NCCL process group, and the programs and utilities.
 
     python3 chip_smoke.py [--seed 0] [--out results.json] [--baseline DIR]
 
 ``--baseline DIR``: a checkout of another commit of the port (for
 example ``git archive REV | tar -x -C build/baseline``); phase 14 then
 times its MERL lookup, K5, K6 and K4 against this checkout's, in turns.
+
+On a host with N GPUs, phase 20's sharded calls run alone over N ranks:
+
+    python3 -m torch.distributed.run --nproc-per-node N chip_smoke.py \
+        --mesh-only [--out results.json]
 
 Phases, one line each; any failure raises and exits non-zero:
 
@@ -136,10 +142,41 @@ Phases, one line each; any failure raises and exits non-zero:
    native ``djbio`` MERL and UTIA parsers, HDR decoder and LEAN map
    builders against numpy and the torch maps on the card (HDR and MERL
    bit for bit).
+19. the MERL lookup's backward (``MerlLookupGrad``: the kernel forward,
+   a scatter-add of torch ops backward) at M = 100 x N = 1,458,000 on
+   phase 8's tables, a random output gradient: the gradients w.r.t. the
+   tables and ``iz`` against the CPU path's autograd (rtol 1e-5: atomics
+   reorder the f32 sums), two lookup launches, the backward's ms beside
+   the bytes it must move.
+20. the mesh: an NCCL process group of one rank on ``cuda:0``, started
+   in-process by ``make_mesh(1)`` (NCCL's init and each collective's
+   ms); each sharded call against its unsharded call, the two in turns
+   (unsharded, sharded, sharded, unsharded; the shorter wall of each):
+   ``fit_materials(mesh=)`` on phase 3's materials (100 steps, bit for
+   bit, K3 once a step), ``fit_lsq(mesh=)`` on phase 5's problem (100
+   steps, rtol 1e-6, atol 1e-7, K1 once a step, the step time against
+   phase 5's), ``build_tabular_anisotropic(mesh=)`` at 90x90 against the
+   device power stage (phase 17's tolerance), ``furnace_test(mesh=)`` at
+   64x256 on a UTIA bake, ``render(mesh=)`` of a MERL sphere at res 512,
+   spp 8, 3 bounces (the lookup) and of an envmap frame, equal to the
+   unsharded frames, a backward through the sharded MERL frame w.r.t.
+   the table and the floor's f0 (rtol 1e-5), ``dryrun_multichip(1)``;
+   then ``merl_params --mesh 1`` and ``nrm_utia --mesh 1`` in
+   subprocesses against phases 10 and 20. ``--mesh-only`` under
+   torchrun runs the same calls (``mesh_checks``) at its world size.
+21. the programs and utilities on the card: ``cli/render.py --device
+   cuda`` at res 512 for merl, merl_fit, utia_tab, lean and a
+   ``--pathtrace --envmap`` frame, each against the same render called
+   directly, and one PNG against its image; ``dmap2nmap`` and
+   ``nmap2leanmap`` on a 512x512 PNG written by the port's codec against
+   the CPU; checkpoint round trips of phase 20's fitted M = 100 state and
+   90x90 table; a ``trace()`` of one fit step, which must show the fit
+   kernel.
 
 Each main path (phases 3-5, the gather path of 7, 8, 9, 11, the
 measured render of 13, the measured envmap render of 15, the UTIA fit
-of 17 and the SGD fit of 18) runs with
+of 17, the SGD fit of 18, the backward of 19 and the sharded calls of
+20) runs with
 the launch counts of the wrappers set to 0 just before it and read just
 after; each kernel must have launched on its path (the fused fit
 exactly once per step, K4 once per call). The line before the last is a
@@ -243,6 +280,8 @@ UTIA_FIT_STEPS = 200
 RES_ANISO = 90                  # aniso_fit90_wall_seconds, bench.py:648-669
 UTIA_RES, UTIA_SPP = 256, 8
 SGD_STEPS = 300                 # phase 18's fit_materials on SGD targets
+MESH_STEPS = 100                # phase 20's sharded fits, each way
+BWD_RES = 256                   # phase 20's backward through a frame
 # a direction within an ulp of a pole or a bin edge evaluates differently
 # on the card and on the CPU (arccos near 1 is ill conditioned in f32):
 # at most this share of evaluations may stray beyond the tolerance
@@ -748,6 +787,10 @@ def main(argv=None):
                              "(phase 14)")
     parser.add_argument("--ab-times", default=None, metavar="ROOT",
                         help=argparse.SUPPRESS)  # one process of phase 14
+    parser.add_argument("--mesh-only", action="store_true",
+                        help="run phase 20's sharded calls alone, over the "
+                             "ranks that torchrun --nproc-per-node N "
+                             "started (one card a rank)")
     args = parser.parse_args(argv)
     if args.ab_times:
         print(json.dumps(ab_times(args.ab_times, args.seed)))
@@ -758,6 +801,9 @@ def main(argv=None):
         sys.exit("chip_smoke: no CUDA device; the port's kernels need an "
                  "NVIDIA GPU and there is no CPU fallback")
     import dj_brdf_torch  # noqa: F401  (fails outside a checkout)
+    if args.mesh_only:
+        mesh_only(args)
+        return
     from dj_brdf_torch.fit.batch import fit_materials, sample_direction_set
     from dj_brdf_torch.fit.lsq import fit_lsq
     from dj_brdf_torch.microfacet.ndf import GGX, Beckmann
@@ -984,13 +1030,21 @@ def main(argv=None):
     k4 = phase11_k4(mg, ff, dgen, fitted_pvec, ops, results)
     phase12_entry(results)
     measured_lookups = phase13_pathtrace(mg, ff, tables, results)
+    measured_lookups += phase19_lookup_backward(mg, tables, i, o, results)
     table0 = tables[0].clone()
+    cli_tables = tables[:N_CLI].clone()
     del tables
     phase14_ab(args.baseline, args.seed, results)
     measured_lookups += phase15_envmap(mg, ff, table0, results)
     phase16_matpreview(results)
     launches["ggx"] += phase17_utia(mg, ff, dgen, results)
     launches["ggx"] += phase18_sgd_abc_native(mg, ff, i, o, results)
+    sharded, fitted, aniso = phase20_mesh(mg, ff, alphas, f0s, i, o, i1, o1,
+                                          table0, cli_tables, results)
+    launches["ggx"] += sharded["ggx"]
+    measured_lookups += sharded["merl_lookup"]
+    phase21_cli_utils(mg, ff, table0, fitted, aniso, i, o, alphas, f0s,
+                      results)
     main_launches = dict(launches)
     main_launches["merl_lookup"] = (results["merl_fit"]["launches_lookup"]
                                     + lookup_launches + measured_lookups)
@@ -2642,6 +2696,683 @@ def phase18_sgd_abc_native(mg, ff, i, o, results):
     log(f"phase 18 wall {out['wall_s']:.1f} s")
     results["sgd_abc_native"] = out
     return launched
+
+
+def phase19_lookup_backward(mg, tables, i, o, results):
+    """The MERL lookup's backward on the card (``MerlLookupGrad``: the
+    kernel forward, a scatter-add of torch ops backward) at M = 100 x
+    N = 1,458,000 against the CPU path's autograd. Returns the lookup's
+    launches on the path."""
+    from dj_brdf_torch.models import merl as merl_mod
+
+    scales = merl_mod.SCALES
+    flat = tables.reshape(M_MERL, 3, -1)
+    idx = merl_mod.merl_flat_index(i, o).reshape(-1).contiguous()
+    iz = i[:, 2].contiguous()
+    g = torch.rand((M_MERL, N_MERL, 3), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(19))
+
+    # the main path: merl_lookup of tables and iz that require grad
+    torch.cuda.synchronize()
+    mg.LAUNCHES["merl_lookup"] = 0
+    t = flat.detach().clone().requires_grad_(True)
+    z = iz.detach().clone().requires_grad_(True)
+    t0 = time.perf_counter()
+    out = mg.merl_lookup(t, idx, scales, z)
+    out.backward(g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    looked = mg.LAUNCHES["merl_lookup"]
+    if looked != 2:
+        raise AssertionError(f"phase 19: {looked} lookup launches for a "
+                             "forward and a backward (want 2: the forward "
+                             "and the backward's rgb)")
+
+    # the CPU path's autograd, ten materials at a time
+    idx_c, iz_c = idx.cpu(), iz.detach().cpu().requires_grad_(True)
+    grad_t = torch.empty(flat.shape)
+    for a in range(0, M_MERL, 10):
+        tc = flat[a:a + 10].cpu().requires_grad_(True)
+        mg.plain_merl_lookup(tc, idx_c, scales, iz_c).backward(
+            g[a:a + 10].cpu())
+        grad_t[a:a + 10] = tc.grad
+    # atomics add the f32 terms in another order than the CPU's loop
+    err_t, _ = within("phase 19 grad w.r.t. the tables", t.grad, grad_t,
+                      1e-5, 1e-12)
+    err_z, _ = within("phase 19 grad w.r.t. iz", z.grad, iz_c.grad, 1e-5,
+                      1e-12)
+    nonzero = float((grad_t != 0).double().mean())
+
+    def backward():
+        return mg.lookup_backward(flat, idx, scales, iz, g,
+                                  mg.kernel_merl_lookup)
+
+    def tables_only():
+        return mg.lookup_backward(flat, idx, scales, iz, g,
+                                  mg.kernel_merl_lookup, need_iz=False)
+
+    backward()
+    ms = min(cuda_ms(backward, 5) for _ in range(2))
+    ms_tables = min(cuda_ms(tables_only, 5) for _ in range(2))
+    # inputs read once (the output gradient, indices, cosines, tables for
+    # the horizon mask), outputs written once (both gradients)
+    nbytes = (12 * M_MERL * N_MERL + 12 * N_MERL
+              + 24 * M_MERL * flat.shape[-1])
+    # per (material, sample, channel): g * iz * scale, the scatter's add,
+    # and the iz gradient's multiply-add
+    b_ms, b_by = bound(nbytes, 5 * 3 * M_MERL * N_MERL)
+    log(f"phase 19 merl_lookup backward M={M_MERL} N={N_MERL}: forward + "
+        f"backward {wall:.3f} s (first call), {looked} lookup launches; "
+        f"card vs CPU autograd: tables max abs err {err_t:.3e} "
+        f"({nonzero:.4f} of the cells have a gradient), iz {err_z:.3e}; "
+        f"backward {ms:.3f} ms (tables only {ms_tables:.3f} ms, iz part "
+        f"with its rgb lookup {ms - ms_tables:.3f} ms), "
+        f"{nbytes / 1e9:.3f} GB moved at least, bound {b_ms:.4f} ms (set by "
+        f"{b_by}), {b_ms / ms:.1%} of it")
+    results["lookup_backward"] = {
+        "wall_s": wall, "launches": looked, "max_abs_err_tables": err_t,
+        "max_abs_err_iz": err_z, "cells_with_grad": nonzero, "ms": ms,
+        "tables_only_ms": ms_tables, "bytes": nbytes, "bound_ms": b_ms,
+        "bound_by": b_by}
+    del g, out, t, z, grad_t
+    return looked
+
+
+def collective_ms(mesh, x, op):
+    """CUDA-event ms of one all-gather or all-reduce of ``x``."""
+    import torch.distributed as dist
+
+    def gather():
+        mesh.all_gather(x)
+
+    def reduce():
+        dist.all_reduce(x.clone())
+    fn = gather if op == "all_gather" else reduce
+    fn()
+    return min(cuda_ms(fn, 20) for _ in range(2))
+
+
+def timed_call(fn):
+    """``(result, wall seconds)`` of ``fn()`` ending in a synchronise;
+    in a process group of more than one rank every rank starts together
+    (a barrier)."""
+    import torch.distributed as dist
+
+    torch.cuda.synchronize()
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def turns(mg, ff, unsharded, sharded):
+    """Both calls in turns (unsharded, sharded, sharded, unsharded), so
+    that neither pays a first call's costs alone. Returns the results of
+    the last call of each, the shorter wall of each, and the launch
+    counts of the first sharded call (set to 0 just before it): the
+    fused fit's and the lookup's."""
+    _, a = timed_call(unsharded)
+    reset_counts(mg, ff)
+    _, b = timed_call(sharded)
+    counts = (ff.LAUNCHES, mg.LAUNCHES["merl_lookup"])
+    got, c = timed_call(sharded)
+    want, d = timed_call(unsharded)
+    return want, got, min(b, c), min(a, d), counts
+
+
+def identical(name, got, want):
+    """Every tensor of two pytrees equal bit for bit."""
+    from dj_brdf_torch.core.pytree import tree_leaves
+
+    a, b = tree_leaves(got), tree_leaves(want)
+    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{name}: the sharded call differs from the "
+                             "unsharded one")
+
+
+def mesh_checks(mg, ff, mesh, alphas, f0s, i, o, i1, o1, table0, tmpdir,
+                say=log):
+    """Phase 20's sharded calls over ``mesh`` (NCCL, any world size),
+    each against its unsharded call on this rank's card, in turns:
+    ``fit_materials`` on phase 3's materials (bit for bit, K3 once a
+    step), ``fit_lsq`` on phase 5's problem (rtol 1e-6, atol 1e-7, K1
+    once a step), the 90x90 anisotropic builder against the device power stage
+    (phase 17's tolerance), ``furnace_test`` at 64x256 on a UTIA bake
+    (equal), a MERL frame at res 512 (the lookup) and an envmap frame
+    (bit for bit), a backward through the sharded MERL frame (rtol
+    1e-5), ``dryrun_multichip``, and the collectives' ms. Raises on any
+    mismatch. Returns the results, the launches of K3 and K1 (GGX) and
+    of the lookup on the sharded paths, the fitted state, the table,
+    the furnace verdict and the UTIA file it wrote into ``tmpdir``."""
+    import dataclasses
+
+    from dj_brdf_torch.core.pytree import tree_leaves
+    from dj_brdf_torch.entry import dryrun_multichip
+    from dj_brdf_torch.fit import tabular_aniso
+    from dj_brdf_torch.fit.batch import fit_materials
+    from dj_brdf_torch.fit.lsq import fit_lsq
+    from dj_brdf_torch.io.synth import bake_utia
+    from dj_brdf_torch.io.utia_io import load_utia, save_utia
+    from dj_brdf_torch.microfacet.ndf import GGX
+    from dj_brdf_torch.models import utia as utia_mod
+    from dj_brdf_torch.parallel import integrals
+    from dj_brdf_torch.render import pathtrace
+    from dj_brdf_torch.render.envmap import EnvMap
+    from dj_brdf_torch.render.materials import MeasuredMaterial
+
+    dev = mesh.device
+    out, launches, walls = {}, {"ggx": 0, "merl_lookup": 0}, {}
+    coll = {
+        "all_reduce_9_floats": collective_ms(mesh, torch.ones(
+            9, device=dev), "all_reduce"),
+        "all_gather_100x3": collective_ms(mesh, torch.ones(
+            (M_MERL, 3), device=dev), "all_gather"),
+        "all_gather_n8010": collective_ms(mesh, torch.ones(
+            8010, device=dev), "all_gather"),
+        "all_gather_pixels_512x512x3": collective_ms(mesh, torch.ones(
+            (PT_RES * PT_RES, 3), device=dev), "all_gather")}
+    say(f"phase 20 collectives at world {mesh.size} (ms) "
+        f"{ {k: round(v, 4) for k, v in coll.items()} }")
+    out["collectives_ms"] = coll
+
+    def pair(name, unsharded, sharded):
+        want, got, walls[name], walls[name + "_unsharded"], counts = turns(
+            mg, ff, unsharded, sharded)
+        return want, got, counts
+
+    # fit_materials: phase 3's targets, 100 steps, bit for bit
+    targets = targets_for(GGX(), alphas, f0s, i, o)
+    want, got, (k3, _) = pair(
+        "fit_materials", lambda: fit_materials(targets, i, o,
+                                               steps=MESH_STEPS),
+        lambda: fit_materials(targets, i, o, steps=MESH_STEPS, mesh=mesh))
+    identical("phase 20 fit_materials", got, want)
+    if k3 != MESH_STEPS:
+        raise AssertionError(f"phase 20: {k3} K3 launches for {MESH_STEPS} "
+                             "sharded steps")
+    launches["ggx"] += k3
+    fitted = got
+    del targets
+
+    # fit_lsq: phase 5's problem against the unsharded fit; the
+    # step times of the last call of each
+    target = targets_for(GGX(), torch.tensor([0.25], device=dev),
+                         torch.tensor([[0.9, 0.6, 0.3]], device=dev),
+                         i1, o1)[0]
+    t_un, t_sh = StepTimer(), StepTimer()
+
+    def lsq(timer, mesh_):
+        with timer:
+            return fit_lsq(GGX(), i1, o1, target, steps=MESH_STEPS,
+                           mesh=mesh_)
+
+    want, got, (k1, _) = pair("fit_lsq", lambda: lsq(t_un, None),
+                              lambda: lsq(t_sh, mesh))
+    # past one rank the ranks' gradients are summed in another order:
+    # parameters whose truth is 0 (rho, txn, tyn) land ~1e-10 apart, so
+    # the atol is tests/test_torch_mesh.py's for the same comparison
+    err_lsq = max(within("phase 20 fit_lsq", a, b, 1e-6, 1e-7)[0]
+                  for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    if k1 != MESH_STEPS:
+        raise AssertionError(f"phase 20: {k1} K1 launches for {MESH_STEPS} "
+                             "sharded steps")
+    launches["ggx"] += k1
+    steps = {"fit_lsq_unsharded": t_un.median_ms(),
+             "fit_lsq": t_sh.median_ms()}
+    del target
+
+    # the anisotropic builder at 90x90: the sharded stage 1 against the
+    # device f32 power stage (phase 17's path)
+    ggx = utia_ggx_eval(dev)
+    want, got, _ = pair(
+        "aniso", lambda: tabular_aniso.build_tabular_anisotropic(
+            ggx, RES_ANISO, RES_ANISO, power="device", device=dev),
+        lambda: tabular_aniso.build_tabular_anisotropic(
+            ggx, RES_ANISO, RES_ANISO, mesh=mesh, device=dev))
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    tabular_aniso.build_tabular_anisotropic(ggx, RES_ANISO, RES_ANISO,
+                                            mesh=mesh, device=dev)
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    rel, moved = tables_within("phase 20 aniso 90x90", got[0],
+                               to_device(want[0], "cpu"))
+    within("phase 20 aniso Fresnel", got[1].points, want[1].points, 1e-4,
+           1e-6)
+    aniso = got[0]
+
+    # furnace_test on the UTIA table at 64x256
+    utia_path = os.path.join(tmpdir, f"ggx-{mesh.rank}.bin")
+    save_utia(utia_path, bake_utia(ggx, dev))
+    u = utia_mod.Utia.build(torch.as_tensor(load_utia(utia_path),
+                                            device=dev))
+    want, got, _ = pair(
+        "furnace", lambda: integrals.furnace_test(u.evalp, device=dev),
+        lambda: integrals.furnace_test(u.evalp, mesh=mesh, device=dev))
+    if got != want:
+        raise AssertionError(f"phase 20: furnace_test {got} sharded, {want} "
+                             "unsharded")
+    furnace = got
+
+    # render: a MERL sphere (the lookup) at bench.py's size, and an envmap
+    # frame, equal to the unsharded frames; a backward through the sharded
+    # MERL frame w.r.t. the table and the floor's f0
+    measured = MeasuredMaterial.from_merl(table0)
+    _, floor_mat = pt_scene("ggx", dev)
+
+    def merl_frame(res, mesh_, sphere=measured, floor=floor_mat):
+        return pathtrace.render(
+            sphere, floor, PT_LIGHT, PT_LIGHT_RAD, PT_SKY, res=res,
+            spp=PT_SPP, max_bounces=PT_BOUNCES, mesh=mesh_,
+            generator=torch.Generator(device=dev).manual_seed(20))
+
+    with torch.no_grad():
+        want, got, (_, looked) = pair(
+            "merl_frame", lambda: merl_frame(PT_RES, None),
+            lambda: merl_frame(PT_RES, mesh))
+        identical("phase 20 MERL frame", got, want)
+        em = EnvMap.build(env_image(*ENV_SIZES[0]), device=dev)
+        sphere, floor_b = pt_scene("beck", dev)
+        black = (0.0, 0.0, 0.0)
+
+        def env_frame(mesh_):
+            return pathtrace.render(
+                sphere, floor_b, PT_LIGHT, black, black, res=ENV_RES,
+                spp=ENV_SPP, max_bounces=ENV_BOUNCES, envmap=em, mesh=mesh_,
+                generator=torch.Generator(device=dev).manual_seed(21))
+
+        want, got, _ = pair("env_frame", lambda: env_frame(None),
+                            lambda: env_frame(mesh))
+        identical("phase 20 envmap frame", got, want)
+    if looked < 1 or not bool(torch.isfinite(got).all()):
+        raise AssertionError("phase 20: the sharded MERL frame launched no "
+                             "lookup, or the frames are not finite")
+    launches["merl_lookup"] += looked
+
+    def backward(mesh_):
+        """The gradients of the frame's mean w.r.t. the table and the
+        floor's f0."""
+        table = table0.clone().requires_grad_(True)
+        f0 = torch.tensor([0.3, 0.3, 0.3], device=dev, requires_grad=True)
+        floor = dataclasses.replace(floor_mat, fres=dataclasses.replace(
+            floor_mat.fres, f0=f0))
+        sphere = dataclasses.replace(measured, model=dataclasses.replace(
+            measured.model, table=table))
+        merl_frame(BWD_RES, mesh_, sphere, floor).mean().backward()
+        return table.grad, f0.grad
+
+    want, got, (_, looked_bwd) = pair("backward", lambda: backward(None),
+                                      lambda: backward(mesh))
+    launches["merl_lookup"] += looked_bwd
+    err_t, _ = within("phase 20 sharded backward, d/d table", got[0],
+                      want[0], 1e-5, 1e-6 * float(want[0].abs().max()))
+    err_f, _ = within("phase 20 sharded backward, d/d floor f0", got[1],
+                      want[1], 1e-5, 1e-9)
+    if not (want[0].abs().max() > 0 and want[1].abs().max() > 0):
+        raise AssertionError("phase 20: the frame's gradient is zero")
+
+    _, walls["dryrun_multichip"] = timed_call(
+        lambda: dryrun_multichip(mesh.size))
+
+    pairs = {k: [round(walls[k], 4), round(walls[k + "_unsharded"], 4)]
+             for k in walls if k + "_unsharded" in walls}
+    say(f"phase 20 sharded against unsharded at world {mesh.size}, wall s "
+        f"(the shorter of two calls each, in turns): {pairs}; "
+        f"dryrun_multichip({mesh.size}) {walls['dryrun_multichip']:.4f} s")
+    say(f"phase 20 fit_materials M={M_MERL} N={N_MERL} {MESH_STEPS} steps: "
+        f"bit for bit, K3 {k3} launches; fit_lsq N={N_SINGLE}: max abs err "
+        f"{err_lsq:.3e} (rtol 1e-6, atol 1e-7), K1 {k1} launches, median "
+        f"step {steps['fit_lsq']:.3f} ms against "
+        f"{steps['fit_lsq_unsharded']:.3f} unsharded; aniso 90x90 sharded "
+        f"max rel err {rel:.3e} against the device power stage ({moved} qf "
+        f"entries one step off), peak {peak:.3f} GB above {held / 1e9:.3f} "
+        f"held; furnace_test 64x256 {furnace}; MERL frame res {PT_RES} spp "
+        f"{PT_SPP} and envmap frame res {ENV_RES}: bit for bit, lookups "
+        f"{looked}; backward res {BWD_RES}: d/d table max abs err "
+        f"{err_t:.3e}, d/d f0 {err_f:.3e}")
+    out.update(world=mesh.size, walls_s=walls, step_ms=steps, k3=k3, k1=k1,
+               fit_lsq_max_abs_err=err_lsq,
+               aniso_max_rel_err=rel, aniso_qf_moved=moved,
+               aniso_peak_gb=peak, furnace=list(furnace),
+               merl_frame_lookups=looked, backward_err_table=err_t,
+               backward_err_f0=err_f)
+    return out, launches, fitted, aniso, furnace, utia_path
+
+
+def start_mesh(n_devices, say=log):
+    """``make_mesh`` on the card and NCCL's first all-reduce (where it
+    makes its communicator), timed."""
+    import torch.distributed as dist
+
+    from dj_brdf_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(n_devices, "cuda")
+    dist.all_reduce(torch.ones(1, device=mesh.device))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if dist.get_backend() != "nccl" or mesh.device.type != "cuda":
+        raise AssertionError(f"phase 20: backend {dist.get_backend()} on "
+                             f"{mesh.device}, want nccl on the card")
+    say(f"phase 20 mesh: NCCL world of {mesh.size} on {mesh.device} (rank "
+        f"{mesh.rank}), init and first all-reduce {init_s:.3f} s")
+    return mesh, init_s
+
+
+def phase20_mesh(mg, ff, alphas, f0s, i, o, i1, o1, table0, cli_tables,
+                 results):
+    """The mesh on the card: an NCCL process group of one rank started
+    in-process, :func:`mesh_checks`, ``dryrun_multichip(1)``, and both
+    programs with ``--mesh 1`` in subprocesses. Returns the launches of
+    K3 and K1 (GGX) and of the lookup on the sharded paths."""
+    import torch.distributed as dist
+
+    from dj_brdf_torch.io.merl_io import save_merl
+
+    mesh, init_s = start_mesh(1)
+    tmp = tempfile.TemporaryDirectory()
+    out, launches, fitted, aniso, furnace, utia_path = mesh_checks(
+        mg, ff, mesh, alphas, f0s, i, o, i1, o1, table0, tmp.name)
+    out["init_s"] = init_s
+    phase5 = results["fit_lsq_ggx"]["median_step_ms"]
+    log(f"phase 20 fit_lsq median step: phase 5 {phase5:.3f} ms")
+    out["step_ms"]["phase5"] = phase5
+
+    files = []
+    for k in range(N_CLI):
+        files.append(os.path.join(tmp.name, f"synth-{k:03d}.binary"))
+        save_merl(files[-1], cli_tables[k])
+    params = os.path.join(tmp.name, "params.txt")
+
+    def program(module, *args):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", module, "--device", "cuda", "--mesh", "1",
+             *args], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            capture_output=True, text=True, timeout=600)
+        return proc, time.perf_counter() - t0
+
+    walls = out["walls_s"]
+    proc, walls["merl_params_mesh1"] = program(
+        "dj_brdf_torch.cli.merl_params", "-o", params, *files)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 20: merl_params --mesh 1 exited "
+                             f"{proc.returncode}:\n{proc.stderr}")
+    with open(params) as fh:
+        rows = [ln.split() for ln in fh.read().splitlines()[1:]]
+    if rows != results["cli"]["rows"]:
+        raise AssertionError(f"phase 20: merl_params --mesh 1 wrote {rows}, "
+                             f"phase 10 {results['cli']['rows']}")
+    proc, walls["nrm_utia_mesh1"] = program("dj_brdf_torch.cli.nrm_utia",
+                                            utia_path)
+    verdict = re.findall(r"=> (ok|FAILURE) \(max integral ([0-9.]+)\)",
+                         proc.stdout)
+    want_v = [("ok" if furnace[0] else "FAILURE", f"{furnace[1]:.4f}")]
+    if verdict != want_v or proc.returncode != (0 if furnace[0] else 1):
+        raise AssertionError(f"phase 20: nrm_utia --mesh 1 said {verdict} "
+                             f"(exit {proc.returncode}), furnace_test "
+                             f"{want_v}")
+    tmp.cleanup()
+    dist.destroy_process_group()
+    log(f"phase 20 merl_params --mesh 1 rows {rows} in "
+        f"{walls['merl_params_mesh1']:.1f} s; nrm_utia --mesh 1 {verdict} "
+        f"exit {proc.returncode} in {walls['nrm_utia_mesh1']:.1f} s")
+    out.update(merl_params_rows=rows, nrm_utia=verdict)
+    results["mesh"] = out
+    return launches, fitted, aniso
+
+
+def mesh_only(args):
+    """Phase 20's :func:`mesh_checks` alone over the process group that
+    ``torchrun --nproc-per-node N`` started (NCCL, one card a rank), at
+    phase 3's and phase 5's sizes, materials drawn as phase 3 draws them
+    and a MERL bake of the first. Rank 0 prints the results and writes them to ``--out``;
+    any mismatch raises, and torchrun then stops every rank."""
+    import torch.distributed as dist
+
+    from dj_brdf_torch import fresnel
+    from dj_brdf_torch.fit.batch import sample_direction_set
+    from dj_brdf_torch.io.synth import bake_merl
+    from dj_brdf_torch.microfacet import brdf
+    from dj_brdf_torch.microfacet.ndf import GGX
+    from dj_brdf_torch.microfacet.params import MicrofacetParams
+    from dj_brdf_torch.ops import _build
+    from dj_brdf_torch.ops import fused_fit as ff
+    from dj_brdf_torch.ops import merl_gather as mg
+
+    rank = int(os.environ.get("RANK", 0))
+    say = log if rank == 0 else (lambda *_: None)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    say(" | ".join(smi.splitlines()))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh, init_s = start_mesh(None, say)
+    if mesh.rank == 0:               # one build; the other ranks load it
+        _build.build_all(["fused_fit", "merl_gather", "alias"])
+    dist.barrier(device_ids=[mesh.device.index])
+    ff._lib()
+    mg._lib()
+    dev = mesh.device
+    gen = torch.Generator().manual_seed(args.seed)
+    dirgen = torch.Generator(device=dev).manual_seed(0)
+    i, o = sample_direction_set(N_MERL, dirgen, dev)
+    lo, hi = ALPHA_RANGE_GGX
+    alphas = (lo + (hi - lo) * torch.rand(M_MERL, generator=gen)).to(dev)
+    f0s = (0.05 + 0.9 * torch.rand((M_MERL, 3), generator=gen)).to(dev)
+    i1, o1 = sample_direction_set(N_SINGLE, dirgen, dev)
+    table0 = bake_merl(lambda ii, oo: brdf.eval(
+        GGX(), fresnel.Schlick(f0=f0s[0]), MicrofacetParams.isotropic(
+            alphas[0]), ii, oo), device=dev).float()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = mesh_checks(mg, ff, mesh, alphas, f0s, i, o, i1, o1, table0,
+                          tmp, say)[0]
+    out.update(init_s=init_s, nvidia_smi=smi)
+    if mesh.rank == 0:
+        say(json.dumps(out))
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump(out, fh, indent=1)
+    dist.destroy_process_group()
+
+
+def phase21_cli_utils(mg, ff, table0, fitted, aniso, i, o, alphas, f0s,
+                      results):
+    """The programs and the utilities on the card: ``cli/render.py`` for
+    four models and a path-traced envmap frame against the same renders
+    called directly, ``dmap2nmap``/``nmap2leanmap`` on a 512x512 PNG of
+    the port's codec against the CPU, checkpoint round trips of a fitted
+    state and a 90x90 table, and a ``trace()`` of one fit step."""
+    import numpy as np
+
+    from dj_brdf_torch import fresnel
+    from dj_brdf_torch.cli import dmap2nmap, nmap2leanmap
+    from dj_brdf_torch.cli import render as cli_render
+    from dj_brdf_torch.core.pytree import tree_leaves
+    from dj_brdf_torch.fit import moments, tabular, tabular_aniso
+    from dj_brdf_torch.fit.batch import fit_materials
+    from dj_brdf_torch.io import png
+    from dj_brdf_torch.io.merl_io import save_merl
+    from dj_brdf_torch.io.synth import bake_utia
+    from dj_brdf_torch.io.utia_io import load_utia, save_utia
+    from dj_brdf_torch.lean.filtered import FilteredBeckmannMaterial
+    from dj_brdf_torch.lean.lrep import Lrep
+    from dj_brdf_torch.microfacet.ndf import GGX
+    from dj_brdf_torch.microfacet.params import MicrofacetParams
+    from dj_brdf_torch.models.merl import Merl
+    from dj_brdf_torch.models.utia import Utia
+    from dj_brdf_torch.render import pathtrace
+    from dj_brdf_torch.render.envmap import EnvMap
+    from dj_brdf_torch.render.materials import (MeasuredMaterial,
+                                                MicrofacetMaterial)
+    from dj_brdf_torch.render.sphere import (render_sphere, sample_texture,
+                                             sphere_normals, sphere_uv)
+    from dj_brdf_torch.utils import checkpoint, profiling
+
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    out = {}
+
+    def path(name):
+        return os.path.join(d, name)
+
+    def f32(*x):
+        return torch.tensor(x, dtype=torch.float32, device="cuda")
+
+    # dmap2nmap and nmap2leanmap on a 512x512 PNG of the port's codec,
+    # the card against the CPU
+    y, x = np.meshgrid(np.arange(512), np.arange(512), indexing="ij")
+    dmap = (127.5 + 127.5 * np.sin(2 * np.pi * x / 64)
+            * np.cos(2 * np.pi * y / 96)).astype(np.uint8)
+    png.write_png(path("dmap.png"), dmap)
+    walls = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        dmap2nmap.main([path("dmap.png"), "--scale", "0.02", "-o",
+                        path(f"nmap-{dev}.png"), "--device", dev])
+        nmap2leanmap.main([path(f"nmap-{dev}.png"), "--base-roughness",
+                           "0.1", "--out1", path(f"l1-{dev}.npy"), "--out2",
+                           path(f"l2-{dev}.npy"), "--device", dev])
+        walls[dev] = time.perf_counter() - t0
+    nm = [png.read_png(path(f"nmap-{dev}.png")).astype(int)
+          for dev in ("cuda", "cpu")]
+    lsb = int(np.abs(nm[0] - nm[1]).max())
+    if nm[0].shape != (512, 512, 3) or lsb > 1:
+        raise AssertionError(f"phase 21: dmap2nmap on the card differs from "
+                             f"the CPU by {lsb} 8-bit steps")
+    for k in ("l1", "l2"):
+        within(f"phase 21 nmap2leanmap {k}", torch.from_numpy(np.load(
+            path(f"{k}-cuda.npy"))), np.load(path(f"{k}-cpu.npy")), 1e-5,
+            1e-6)
+    out["maps"] = {"wall_s": walls, "nmap_max_lsb": lsb}
+
+    # cli/render.py against the same renders called directly on the card
+    save_merl(path("m.binary"), table0)
+    utia_raw = bake_utia(utia_ggx_eval("cuda"))
+    save_utia(path("u.bin"), utia_raw)
+    np.save(path("env.npy"), env_image(*ENV_SIZES[0]))
+    table = Merl(table=table0).table
+    utia = Utia.build(torch.as_tensor(load_utia(path("u.bin")),
+                                      device="cuda"))
+    light, res = (0.3, 0.4, 0.8), PT_RES
+
+    def sphere(mat):
+        return render_sphere(mat.evalp, light, res=res, device="cuda")
+
+    def merl_direct():
+        return sphere(MeasuredMaterial.from_merl(table))
+
+    def merl_fit_direct():
+        tab, tab_fres = tabular.build_tabular(Merl(table=table), RES_TAB,
+                                              shadow=False)
+        return sphere(MicrofacetMaterial(
+            GGX(), tab_fres, moments.fit_ggx_parameters(tab)))
+
+    def utia_tab_direct():
+        tab, tab_fres = tabular_aniso.build_tabular_anisotropic(
+            utia, RES_ANISO, RES_ANISO)
+        return sphere(MicrofacetMaterial(tab, tab_fres,
+                                         MicrofacetParams.isotropic(f32(1.0)[0])))
+
+    def lean_direct():
+        m1 = torch.as_tensor(np.load(path("l1-cuda.npy")), device="cuda")
+        m2 = torch.as_tensor(np.load(path("l2-cuda.npy")), device="cuda")
+        uu, vv = sphere_uv(sphere_normals(res, device="cuda")[0])
+        lean = Lrep(*(sample_texture(t, uu, vv) for t in (
+            m1[..., 0], m1[..., 1], m2[..., 0], m2[..., 1], m2[..., 2])))
+        return sphere(FilteredBeckmannMaterial(
+            lean=lean, base_params=MicrofacetParams.elliptic(
+                f32(0.3)[0], f32(0.3)[0], f32(0.0)[0]),
+            eta=f32(*GOLD_ETA), k=f32(*GOLD_K), dmap_scale=f32(1.0)[0]))
+
+    def pathtrace_direct():
+        s_mat = MicrofacetMaterial(GGX(), fresnel.Schlick(f0=f32(1, 1, 1)),
+                                   MicrofacetParams.elliptic(
+                                       f32(0.3)[0], f32(0.3)[0], f32(0.0)[0]))
+        f_mat = MicrofacetMaterial(GGX(), fresnel.Schlick(
+            f0=f32(0.35, 0.35, 0.35)), MicrofacetParams.isotropic(
+                f32(0.4)[0]))
+        em = EnvMap.build(torch.from_numpy(np.load(path("env.npy"))),
+                          device="cuda")
+        return pathtrace.render(
+            s_mat, f_mat, light, cli_render.LIGHT_RADIANCE,
+            cli_render.SKY_RADIANCE, res=res, spp=PT_SPP,
+            max_bounces=PT_BOUNCES, envmap=em,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+
+    cases = {
+        "merl": (["--file", path("m.binary")], merl_direct),
+        "merl_fit": (["--file", path("m.binary")], merl_fit_direct),
+        "utia_tab": (["--file", path("u.bin")], utia_tab_direct),
+        "lean": (["--leanmap1", path("l1-cuda.npy"), "--leanmap2",
+                  path("l2-cuda.npy")], lean_direct),
+        "ggx": (["--pathtrace", "--envmap", path("env.npy"), "--spp",
+                 str(PT_SPP), "--bounces", str(PT_BOUNCES), "--floor-model",
+                 "ggx"], pathtrace_direct)}
+    for name, (args, direct) in cases.items():
+        argv = ["--model", name, *args, "--res", str(res), "--device",
+                "cuda"]
+        t0 = time.perf_counter()
+        cli_render.main(argv + ["-o", path(f"{name}.npy")])
+        wall = time.perf_counter() - t0
+        got = torch.from_numpy(np.load(path(f"{name}.npy")))
+        with torch.no_grad():
+            want, direct_wall = timed_call(direct)
+        err, _ = within(f"phase 21 render --model {name}", got, want, 1e-6,
+                        1e-7 * float(want.abs().max()))
+        if not (got.shape == (res, res, 3) and float(got.max()) > 0.0):
+            raise AssertionError(f"phase 21: render --model {name} is empty")
+        out[f"render_{name}"] = {"wall_s": wall, "direct_s": direct_wall,
+                                 "max_abs_err": err}
+    cli_render.main(["--model", "merl", "--file", path("m.binary"), "--res",
+                     str(res), "--device", "cuda", "-o", path("merl.png")])
+    # the program's tone map, on the card as it runs it
+    img = torch.from_numpy(np.load(path("merl.npy"))).cuda()
+    tone = ((torch.clamp(img * 1.0, 0.0, 1.0) ** (1 / 2.2)).cpu().numpy()
+            * 255).astype(np.uint8)
+    if not np.array_equal(png.read_png(path("merl.png")), tone):
+        raise AssertionError("phase 21: render's PNG is not its image")
+    log(f"phase 21 cli/render.py --device cuda res {res}: "
+        f"{ {k[7:]: [round(v['wall_s'], 3), round(v['direct_s'], 3), v['max_abs_err']] for k, v in out.items() if k.startswith('render_')} } "
+        f"(program s, direct render s, max abs err); PNG = the tonemapped "
+        f"image; dmap2nmap + nmap2leanmap 512x512 card {walls['cuda']:.3f} s,"
+        f" CPU {walls['cpu']:.3f} s, normal map within {lsb} step")
+
+    # checkpoints of a fitted M = 100 state and the 90x90 table, on the card
+    for name, tree in (("fit", fitted), ("aniso", aniso)):
+        f = path(f"{name}.pt")
+        checkpoint.save_checkpoint(f, tree)
+        back = checkpoint.load_checkpoint(f, like=tree, map_location="cuda")
+        leaves = tree_leaves(back)
+        if not (type(back) is type(tree) and all(
+                t.is_cuda for t in leaves) and all(
+                torch.equal(a, b) for a, b in zip(leaves,
+                                                  tree_leaves(tree)))):
+            raise AssertionError(f"phase 21: the {name} checkpoint does not "
+                                 "round-trip on the card")
+        out[f"checkpoint_{name}_bytes"] = os.path.getsize(f)
+
+    # a trace of one fit step, which must show the fit kernel
+    targets = targets_for(GGX(), alphas, f0s, i, o)
+    torch.cuda.synchronize()
+    with profiling.trace(path("trace")) as prof:
+        fit_materials(targets, i, o, steps=1)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    hits = [n for n in names if "fused_fit_kernel" in n]
+    with open(path("trace/trace.json")) as fh:
+        in_file = "fused_fit_kernel" in fh.read()
+    if not (hits and in_file):
+        raise AssertionError("phase 21: the trace of a fit step shows no "
+                             "fused_fit_kernel")
+    log(f"phase 21 checkpoints: fit state {out['checkpoint_fit_bytes']} B, "
+        f"90x90 table {out['checkpoint_aniso_bytes']} B, bit for bit on the "
+        f"card; trace() of one fit step: {len(names)} event names, "
+        f"{hits[0][:60]!r} among them and in trace.json")
+    out["trace_kernel"] = hits[0]
+    results["cli_utils"] = out
+    tmp.cleanup()
 
 
 def ab_times(root, seed):

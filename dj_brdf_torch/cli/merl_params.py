@@ -6,12 +6,14 @@ the tabulation pipeline at res 90 and append
 (merl_params.cpp:53-68).
 
 All materials stack on a leading axis and tabulate at once on one
-device (fit/batch.py::tabulate_merl_batch). ``--device`` is ``cuda`` by
-default and is never swapped for another: without that device the
-program fails.
+device (fit/batch.py::tabulate_merl_batch); ``--mesh N`` shards the
+material axis over N ranks, started with ``torchrun --nproc-per-node N``
+(or N = 1 in-process), and rank 0 writes the output. ``--device`` is
+``cuda`` by default and is never swapped for another: without that
+device the program fails.
 
 Usage: python -m dj_brdf_torch.cli.merl_params [--device cuda|cpu]
-           merl1.binary merl2.binary ...
+           [--mesh N] merl1.binary merl2.binary ...
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import os
 import sys
 import time
 
+from dj_brdf_torch.cli import checked_device, device_arg
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
@@ -28,10 +32,9 @@ def main(argv=None) -> int:
     ap.add_argument("-o", "--output", default="params.txt")
     ap.add_argument("--res", type=int, default=90)
     ap.add_argument("--mesh", type=int, default=0,
-                    help="shard materials over an N-device mesh (not "
-                         "ported yet)")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to tabulate on (default: cuda)")
+                    help="shard materials over N ranks (torchrun "
+                         "--nproc-per-node N, or 1)")
+    device_arg(ap)
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -40,19 +43,20 @@ def main(argv=None) -> int:
     from dj_brdf_torch.fit.batch import tabulate_merl_batch
     from dj_brdf_torch.io.merl_io import load_merl
 
+    device = checked_device(args.device)
+    mesh = None
     if args.mesh:
-        raise NotImplementedError("--mesh: sharding over a device mesh is "
-                                  "not ported yet")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device here "
-                           "(use --device cpu to run on the CPU)")
+        from dj_brdf_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(args.mesh, device)
+        device = mesh.device
 
     tables = torch.as_tensor(np.stack([load_merl(path) for path in args.files]),
                              device=device)
     t0 = time.perf_counter()
-    _, _, ab, ag = tabulate_merl_batch(tables, args.res)
+    _, _, ab, ag = tabulate_merl_batch(tables, args.res, mesh=mesh)
     ab, ag = ab.cpu().numpy(), ag.cpu().numpy()
+    if mesh is not None and mesh.rank != 0:
+        return 0
     print(f"# tabulated {len(args.files)} materials in "
           f"{time.perf_counter() - t0:.2f}s on {device}", file=sys.stderr)
 

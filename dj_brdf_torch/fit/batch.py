@@ -10,8 +10,10 @@ on the CPU). MERL tables stack on a leading axis in the same way:
 of the lookup kernels, and ``tabulate_merl_batch`` runs the tabulation
 pipeline on the whole stack at once.
 
-Counterpart of ``dj_brdf_tpu/fit/batch.py``. Sharding the material
-axis over several devices (``mesh``) is not ported yet.
+Counterpart of ``dj_brdf_tpu/fit/batch.py``. With ``mesh=`` (a
+:class:`~dj_brdf_torch.parallel.mesh.Mesh`) the material axis is sharded
+over the ranks: each runs its block of materials with no communication,
+and the results are all-gathered at the end.
 """
 
 from __future__ import annotations
@@ -69,19 +71,26 @@ def tabulate_merl_batch(tables, res: int = 90, shadow: bool = True,
     material axis, each MERL lookup is one kernel launch for all M
     tables, and the 4-step power iteration is one batched (M, 89, 89)
     float64 matvec on the same device, like the reference's
-    double-precision ``matrix`` class."""
+    double-precision ``matrix`` class.
+
+    With a mesh, each rank tabulates its block of the stack, padded to a
+    multiple of the ranks with copies of the first tables as the JAX
+    package pads it, and every rank gets all M results."""
+    from dj_brdf_torch.core.pytree import tree_map
     from dj_brdf_torch.fit import moments
     from dj_brdf_torch.fit.tabular import build_tabular
 
+    m = tables.shape[0]
     if mesh is not None:
-        raise NotImplementedError(
-            "tabulate_merl_batch: sharding over a device mesh is not "
-            "ported yet")
+        tables = mesh.shard(tables)
     dists, fres = build_tabular(Merl(table=tables), res,
                                 shadow)
     ab = moments.fit_beckmann_parameters(dists).ax
     ag = moments.fit_ggx_parameters(dists).ax
-    return dists, fres.points, ab, ag
+    out = (dists, fres.points, ab, ag)
+    if mesh is not None:
+        out = tree_map(lambda t: mesh.all_gather(t, n=m), out)
+    return out
 
 
 def fit_materials(targets, i, o, steps: int = 300, lr: float = 5e-2,
@@ -101,15 +110,24 @@ def fit_materials(targets, i, o, steps: int = 300, lr: float = 5e-2,
     does not take: it raises a ``TypeError`` naming ``use_x64`` (the JAX
     package's ``fit_materials`` fails under x64 as well).
 
+    With a mesh, each rank fits its block of materials (padded to a
+    multiple of the ranks with copies of the first ones), one kernel
+    launch a step on the card, with no communication; the optimizer's
+    objective stays the mean over all M materials, so every material
+    takes the steps of the unsharded fit. Params and losses are
+    all-gathered at the end.
+
     Returns ``(params, fresnel, losses)`` with (M,)-leaved params, (M, 3)
     f0 and the (M,) per-material losses of the last step."""
+    from dj_brdf_torch.core.pytree import tree_map
+
     if fused not in ("auto", "never"):
         raise ValueError(f"fused must be 'auto' or 'never', got {fused!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit_materials: sharding over a device mesh is not ported yet")
     targets, i, o = (t.to(default_float()) for t in (targets, i, o))
 
+    m_total = targets.shape[0]
+    if mesh is not None:
+        targets = mesh.shard(targets)
     m = targets.shape[0]
     raw0 = lsq.RawFit(*(leaf.expand((m,) + leaf.shape).clone()
                         for leaf in lsq.raw_init(device=targets.device)))
@@ -134,9 +152,15 @@ def fit_materials(targets, i, o, steps: int = 300, lr: float = 5e-2,
     def vg(raw, *data):
         raw = lsq.RawFit(*(t.detach().requires_grad_(True) for t in raw))
         per_mat = per_material(raw, *data)
-        grads = torch.autograd.grad(per_mat.mean(), raw)
+        # the gradient of the mean over all M materials (a rank's block
+        # sums its own and divides by M)
+        grads = torch.autograd.grad(per_mat.sum() / m_total, raw)
         return per_mat.detach(), lsq.RawFit(*grads)
 
     raw, per_mat = lsq.adam_loop(vg, raw0, data, steps, lr)
+    out = (raw, per_mat[-1])
+    if mesh is not None:
+        out = tree_map(lambda t: mesh.all_gather(t, n=m_total), out)
+    raw, losses = out
     params, fres = lsq.raw_to_model(raw)
-    return params, fres, per_mat[-1]
+    return params, fres, losses

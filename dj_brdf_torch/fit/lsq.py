@@ -100,11 +100,13 @@ def target_planes(target):
     return tuple(target[..., c].contiguous() for c in range(3))
 
 
-def make_fused_value_and_grad(i, o, target, family: str = "ggx"):
+def make_fused_value_and_grad(i, o, target, family: str = "ggx",
+                              n_valid: int | None = None):
     """Build the GGX/Beckmann + Schlick fit step through the hand-written
     adjoint (the CUDA kernel for CUDA tensors, its plain version for CPU
     tensors). The 8-scalar chain through ``raw_to_pvec`` is pulled back
-    by torch autograd.
+    by torch autograd. ``n_valid`` (default N) divides the sums: a
+    block of a sharded fit passes the global N.
 
     Returns ``(value_and_grad, data)`` where
     ``value_and_grad(raw, *data) -> (loss, grad_raw)`` and ``data`` is
@@ -115,7 +117,7 @@ def make_fused_value_and_grad(i, o, target, family: str = "ggx"):
     def loss(raw: RawFit, ix, iy, iz, ox, oy, oz, tr, tg, tb):
         return fused_fit_loss(soa.raw_to_pvec(raw)[None], ix, iy, iz, ox, oy,
                               oz, tr[None], tg[None], tb[None],
-                              family=family)[0]
+                              n_valid=n_valid, family=family)[0]
 
     return layered_value_and_grad(loss), data
 
@@ -128,6 +130,54 @@ def layered_value_and_grad(loss):
         val = loss(raw, *data)
         return val.detach(), RawFit(*torch.autograd.grad(val, raw))
     return value_and_grad
+
+
+def sharded_value_and_grad(vg, mesh):
+    """``vg`` over this rank's block of samples, its loss and gradient
+    all-reduced: when each block's loss is its share of the global mean,
+    every rank gets the unsharded loss and gradient (the JAX package's
+    ``in_shardings``, where XLA inserts the psum). An empty block adds
+    zero."""
+    def value_and_grad(raw: RawFit, *data):
+        if data[0].shape[0]:
+            val, grads = vg(raw, *data)
+        else:
+            val, grads = raw[0].new_zeros(()), RawFit(*map(torch.zeros_like,
+                                                           raw))
+        flat = mesh.all_reduce_sum(torch.cat(
+            [val.reshape(1)] + [g.reshape(-1) for g in grads]))
+        parts = flat[1:].split([g.numel() for g in grads])
+        return flat[0], RawFit(*(p.reshape(g.shape)
+                                 for p, g in zip(parts, grads)))
+    return value_and_grad
+
+
+def fit_step(dist, i, o, target, shadow: bool = True, fused: str = "auto",
+             mesh=None):
+    """``(value_and_grad, data)`` of :func:`fit_lsq`'s step: the fused
+    step for GGX-family and Beckmann fits under ``fused="auto"``, the
+    layered autograd loss otherwise. With a
+    :class:`~dj_brdf_torch.parallel.mesh.Mesh`, ``data`` is this rank's
+    contiguous block of the samples, the block's loss its share of the
+    global mean, and the loss and gradient are all-reduced
+    (:func:`sharded_value_and_grad`)."""
+    n = i.shape[0]
+    if mesh is not None:
+        block = mesh.split(n)
+        i, o, target = i[block], o[block], target[block]
+    family = fused_eligible(dist, shadow)
+    if fused == "auto" and family:
+        vg, data = make_fused_value_and_grad(i, o, target, family=family,
+                                             n_valid=n)
+    else:
+        loss = make_loss(dist, shadow)
+        share = i.shape[0] / n                # 1 unsharded
+        vg = layered_value_and_grad(
+            lambda raw, *data: loss(raw, *data) * share)
+        data = (i, o, target)
+    if mesh is not None:
+        vg = sharded_value_and_grad(vg, mesh)
+    return vg, data
 
 
 def adam_loop(vg, raw: RawFit, data, steps: int, lr: float):
@@ -150,13 +200,19 @@ def adam_loop(vg, raw: RawFit, data, steps: int, lr: float):
 
 def fit_lsq(dist, i, o, target, steps: int = 200, lr: float = 5e-2,
             init: RawFit | None = None, shadow: bool = True,
-            fused: str = "auto"):
+            fused: str = "auto", mesh=None):
     """Fit (MicrofacetParams, Schlick) to ``target = evalp(i, o)``.
 
     ``fused``: "auto" routes GGX-family and Beckmann fits through the
-    fused fit step (:func:`make_fused_value_and_grad`); "never" forces
-    the layered autograd path (other distributions always use it).
+    fused fit step (:func:`make_fused_value_and_grad`, via
+    :func:`fit_step`); "never" forces the layered autograd path (other
+    distributions always use it).
     Runs on the device of ``i``.
+
+    ``mesh``: a :class:`~dj_brdf_torch.parallel.mesh.Mesh` splits the
+    samples into one contiguous block a rank (the JAX package's
+    ``in_shardings``; see :func:`fit_step`). Every rank returns the same
+    fit.
 
     ``i``, ``o`` and ``target`` take ``config.default_float()``, as in
     :func:`~dj_brdf_torch.fit.batch.fit_materials` (under
@@ -169,13 +225,7 @@ def fit_lsq(dist, i, o, target, steps: int = 200, lr: float = 5e-2,
     i, o, target = (t.to(default_float()) for t in (i, o, target))
     raw = init if init is not None else raw_init(device=i.device)
 
-    family = fused_eligible(dist, shadow)
-    if fused == "auto" and family:
-        vg, data = make_fused_value_and_grad(i, o, target, family=family)
-    else:
-        vg = layered_value_and_grad(make_loss(dist, shadow))
-        data = (i, o, target)
-
+    vg, data = fit_step(dist, i, o, target, shadow, fused, mesh)
     raw, losses = adam_loop(vg, raw, data, steps, lr)
     params, fres = raw_to_model(raw)
     return params, fres, losses

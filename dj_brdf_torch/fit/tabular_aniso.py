@@ -19,9 +19,10 @@ Table layout is (azimuthal_res, elevation_res) with the elevation axis
 fast, matching the reference's flat ``m_p22[i + w*j]``. Precision
 follows ``config.default_float()`` (DJB_USE_DOUBLE_PRECISION parity).
 
-Counterpart of ``dj_brdf_tpu/fit/tabular_aniso.py``. Its row-sharded
-multi-device stage 1 (``mesh=``) belongs to the distribution slice and
-raises ``NotImplementedError``.
+Counterpart of ``dj_brdf_tpu/fit/tabular_aniso.py``. With ``mesh=``
+stage 1 is :func:`~dj_brdf_torch.parallel.power.aniso_p22_sharded` (each
+rank builds a block of kernel columns) and stage 2 runs on the gathered
+table.
 """
 
 from __future__ import annotations
@@ -69,37 +70,63 @@ def _kernel_matrix(eval_fn, model, elevation_res: int, azimuthal_res: int,
                    dtype=None, device="cuda") -> torch.Tensor:
     ft = dtype or config.default_float()
     dev = _device(model, device)
-    w = elevation_res - 1
-    h = azimuthal_res
-    dtheta = np.sqrt(np.pi * 0.5) / w
-    dphi = 2.0 * np.pi / h
+    cols = col_terms(eval_fn, model, elevation_res, azimuthal_res, ft, dev)
+    return kernel_block(row_terms(elevation_res, azimuthal_res, ft, dev),
+                        *cols)
 
+
+def _angles(elevation_res, azimuthal_res, ft, dev):
+    """(theta, phi) of the (h, w) grid of kernel rows and columns, each
+    flattened azimuth-major (i2 * w + i1)."""
+    w = elevation_res - 1
     theta = _arange(w, ft, dev) * _f(0.5 * np.pi, ft)       # (w,)
-    phi = _arange(h, ft, dev) * _f(2.0 * np.pi, ft)          # (h,)
-    T, P = torch.meshgrid(theta, phi, indexing="xy")         # (h, w)
+    phi = _arange(azimuthal_res, ft, dev) * _f(2.0 * np.pi, ft)  # (h,)
+    return torch.meshgrid(theta, phi, indexing="xy")         # (h, w)
+
+
+def col_terms(eval_fn, model, elevation_res: int, azimuthal_res: int, ft,
+              dev):
+    """Per-column factors of the kernel (dj_brdf.h:2536-2548): the
+    direction components ``xo, yo, zo`` at each column's (theta, phi) and
+    ``kji_tmp1``, the retro-reflective intensity weight, each (w*h,)."""
+    w = elevation_res - 1
+    dtheta = np.sqrt(np.pi * 0.5) / w
+    dphi = 2.0 * np.pi / azimuthal_res
+    T, P = _angles(elevation_res, azimuthal_res, ft, dev)
     sin_t = torch.sin(T)
     zo = torch.cos(T)
     xo = sin_t * torch.cos(P)
     yo = sin_t * torch.sin(P)
-
     d = from_spherical(T, P)
     fr_i = intensity(eval_fn(model, d, d).to(ft))
-    kji_tmp1 = _f(dtheta * dphi, ft) * (4.0 * fr_i * zo ** 5)  # columns
+    kji_tmp1 = _f(dtheta * dphi, ft) * (4.0 * fr_i * zo ** 5)
+    return (xo.reshape(-1), yo.reshape(-1), zo.reshape(-1),
+            kji_tmp1.reshape(-1))
 
+
+def row_terms(elevation_res: int, azimuthal_res: int, ft, dev):
+    """Per-row factors (dj_brdf.h:2550-2565): the slopes and the
+    tan/cos^2 weight at each row's (theta, phi), each (w*h,)."""
+    T, P = _angles(elevation_res, azimuthal_res, ft, dev)
     tan_t = torch.tan(T)
     cos_t = torch.cos(T)
-    slope1 = -tan_t * torch.cos(P)                           # rows
+    slope1 = -tan_t * torch.cos(P)
     slope2 = -tan_t * torch.sin(P)
+    weight = tan_t / (cos_t * cos_t)
+    return slope1.reshape(-1), slope2.reshape(-1), weight.reshape(-1)
 
+
+def kernel_block(rows, xo, yo, zo, kji_tmp1) -> torch.Tensor:
+    """Rows ``A[col, :]`` of the power-step matrix for the columns whose
+    factors are given (all columns: the whole A), from
+    :func:`row_terms`' ``rows``: ``A[col, row] = K(row, col)``."""
+    s1_f, s2_f, weight = rows
     # m_dot_o[row, col] = zo_col - xo_col*slope1_row - yo_col*slope2_row
-    zo_f, xo_f, yo_f = zo.reshape(-1), xo.reshape(-1), yo.reshape(-1)
-    s1_f, s2_f = slope1.reshape(-1), slope2.reshape(-1)
-    m_dot_o = (zo_f[None, :] - s1_f[:, None] * xo_f[None, :]
-               - s2_f[:, None] * yo_f[None, :])
-    kji_tmp2 = (tan_t / (cos_t * cos_t)).reshape(-1)[:, None] \
-        * torch.clamp(m_dot_o, min=0.0)
+    m_dot_o = (zo[None, :] - s1_f[:, None] * xo[None, :]
+               - s2_f[:, None] * yo[None, :])
+    kji_tmp2 = weight[:, None] * torch.clamp(m_dot_o, min=0.0)
     del m_dot_o
-    K = kji_tmp1.reshape(-1)[None, :] * kji_tmp2             # K[row, col]
+    K = kji_tmp1[None, :] * kji_tmp2                         # K[row, col]
     return K.T                                                # A[col, row]
 
 
@@ -314,24 +341,33 @@ def build_tabular_anisotropic(brdf, elevation_res: int, azimuthal_res: int,
     precision, and production sizes (the 8010^2 matrix of the 90x90 UTIA
     fit) in the working precision; "host" (float64) / "device" (working
     precision) force one path. Both run on the matrix's device.
-    ``mesh=`` (the sharded stage 1) is not ported and raises.
+    ``mesh``: a :class:`~dj_brdf_torch.parallel.mesh.Mesh`; stage 1 then
+    never builds more than n/D kernel columns a rank
+    (:func:`~dj_brdf_torch.parallel.power.aniso_p22_sharded`, float32) and
+    stage 2 runs on the gathered table, on the mesh's device for a bare
+    eval function.
 
     Returns (TabularAnisotropic, SplineFresnel)."""
     eval_fn, model = as_model_eval(brdf)
     if power not in ("auto", "host", "device"):
         raise ValueError(f"power must be auto|host|device, got {power!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_tabular_anisotropic: the sharded stage 1 (mesh=) belongs "
-            "to the distribution slice and is not ported yet")
+    if mesh is not None and power != "auto":
+        raise ValueError(
+            "mesh= always runs the sharded f32 power stage; an explicit "
+            f"power={power!r} selection would be ignored: pass power='auto'")
     n = (elevation_res - 1) * azimuthal_res
     in_f64 = (n <= HOST_F64_MAX_N) if power == "auto" else (power == "host")
 
-    A = _kernel_matrix(eval_fn, model, elevation_res, azimuthal_res,
-                       device=device)
-    iterate = power_iteration_p22 if in_f64 else _device_power_table
-    p22_raw = iterate(A, elevation_res, azimuthal_res)
-    del A
+    if mesh is not None:
+        from dj_brdf_torch.parallel.power import aniso_p22_sharded
+        p22_raw = aniso_p22_sharded(brdf, elevation_res, azimuthal_res,
+                                    mesh).to(config.default_float())
+    else:
+        A = _kernel_matrix(eval_fn, model, elevation_res, azimuthal_res,
+                           device=device)
+        iterate = power_iteration_p22 if in_f64 else _device_power_table
+        p22_raw = iterate(A, elevation_res, azimuthal_res)
+        del A
 
     p22, nint = normalize_p22(p22_raw, return_nint=True)
     sigma = compute_sigma(p22)

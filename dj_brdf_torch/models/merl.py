@@ -148,9 +148,10 @@ class Merl:
     x64; on the card it raises a ``TypeError`` that names ``use_x64``,
     since the lookup kernels are float32 only.
 
-    Gradients w.r.t. the table: on CPU tensors the lookup is plain
-    PyTorch and differentiates like JAX's ``jnp.take``; the card's
-    kernels have no backward and refuse a table that requires grad."""
+    Gradients w.r.t. the table and, through ``evalp``'s ``i.z``, w.r.t.
+    ``i``, as JAX's ``jnp.take`` gives them: on CPU tensors by autograd of
+    the plain lookup, on the card by the lookup's backward
+    (:class:`~dj_brdf_torch.ops.merl_gather.MerlLookupGrad`)."""
 
     table: torch.Tensor
 

@@ -21,8 +21,12 @@ never reaches a plain version: the kernel runs, or the call raises.
 
 Indices are clipped into range (``jnp.take``'s ``mode="clip"``). The
 kernels and the plain versions do the same f32 multiplies in the same
-order and agree bit for bit. The kernels compute no gradient: the
-kernel path refuses tensors that require one.
+order and agree bit for bit. The kernels compute no gradient and refuse
+tensors that require one; on the card :func:`merl_lookup` wraps them in
+:class:`MerlLookupGrad`, whose backward (:func:`lookup_backward`) is
+plain torch ops: a scatter-add into the tables' cells (``index_add_``),
+the transpose of the gather that XLA derived on the TPU, never a Pallas
+kernel there.
 """
 
 from __future__ import annotations
@@ -141,9 +145,9 @@ def _kernel_ready(name, tensors, ints=(), floats=()):
         raise ValueError(f"{name} kernel: every tensor must be contiguous")
     if any(t.requires_grad for t in tensors):
         raise ValueError(
-            f"{name} kernel has no backward: on the card there is no "
-            "gradient w.r.t. the table (the CPU path has one, as JAX's "
-            "jnp.take does); detach the inputs or use CPU tensors")
+            f"the {name} kernel computes no gradient: call the wrapper "
+            "(merl_lookup gives the card's lookup its backward through "
+            "MerlLookupGrad) or detach the inputs")
 
 
 def _launch(name, fn, device, *args):
@@ -217,6 +221,62 @@ def launch_merl_lookup(tables, idx, scales, iz, packed):
     return out
 
 
+def lookup_backward(tables, idx, scales, iz, grad, lookup,
+                    need_tables=True, need_iz=True):
+    """The gradients of ``merl_lookup(tables, idx, scales, iz)`` w.r.t.
+    ``tables`` and ``iz`` for the output gradient ``grad`` (M, N, 3), as
+    ``jax.grad`` takes them through JAX's ``jnp.take``, ``where`` and
+    ``* i[..., 2:3]``:
+
+    * tables: ``grad[m, n, c] * iz[n] * scales[c]`` added into cell
+      ``clip(idx[n])`` of plane ``c`` (``index_add_`` on a zeroed
+      (M, 3, P)), then 0 in every cell whose scaled entries hold a
+      negative one: below the horizon the lookup returns the constant 0.
+      Whether a lookup is below depends only on its cell, so the cell
+      mask equals the per-lookup ``where``.
+    * iz: ``sum_{m, c} grad * rgb``, with ``rgb`` from ``lookup`` called
+      without ``iz``.
+
+    ``lookup`` is the forward (the kernel on the card, the plain version
+    on the CPU). Returns ``(grad_tables or None, grad_iz or None)``."""
+    p = tables.shape[-1]
+    tables = tables.detach()
+    s = torch.tensor(scales, dtype=tables.dtype, device=tables.device)
+    g_tables = g_iz = None
+    if need_tables:
+        src = grad if iz is None else grad * iz.detach()[:, None]
+        src = (src * s).permute(0, 2, 1)                     # (M, 3, N)
+        g_tables = torch.zeros_like(tables).index_add_(
+            2, idx.clamp(0, p - 1).long(), src)
+        below = torch.any(tables * s[:, None] < 0.0, dim=1, keepdim=True)
+        g_tables = g_tables.masked_fill_(below, 0.0)
+    if need_iz and iz is not None:
+        rgb = lookup(tables, idx, scales, None)
+        g_iz = torch.sum(grad * rgb, dim=(0, 2))
+    return g_tables, g_iz
+
+
+class MerlLookupGrad(torch.autograd.Function):
+    """:func:`merl_lookup` with a backward: the forward runs ``lookup``
+    on detached inputs (the kernels refuse tensors that require grad),
+    the backward is :func:`lookup_backward`. ``iz`` may be None."""
+
+    @staticmethod
+    def forward(ctx, tables, iz, idx, scales, lookup):
+        ctx.save_for_backward(tables, iz, idx)
+        ctx.scales, ctx.lookup = scales, lookup
+        return lookup(tables.detach(), idx, scales,
+                      None if iz is None else iz.detach())
+
+    @staticmethod
+    def backward(ctx, grad):
+        tables, iz, idx = ctx.saved_tensors
+        g_tables, g_iz = lookup_backward(
+            tables, idx, ctx.scales, iz, grad.contiguous(), ctx.lookup,
+            ctx.needs_input_grad[0], ctx.needs_input_grad[1])
+        return g_tables, g_iz, None, None, None
+
+
 def merl_lookup(tables, idx, scales, iz=None):
     """``(M, N, 3)``: ``tables[m, c, clip(idx[n])] * scales[c]``, all three
     channels 0 where any is negative, times ``iz[n]`` when given.
@@ -224,12 +284,16 @@ def merl_lookup(tables, idx, scales, iz=None):
     shared by all M tables. The kernel on CUDA tensors, the plain
     version on CPU tensors.
 
-    Only the plain version has a backward (autograd of the gather, the
-    counterpart of ``jax.grad`` through ``jnp.take``): on the card the
-    tables must be float32 and must not require grad, or the call
-    raises (see :class:`~dj_brdf_torch.models.merl.Merl` for dtypes)."""
+    Differentiable w.r.t. ``tables`` and ``iz``, as ``jax.grad`` through
+    JAX's ``jnp.take``: on the CPU by autograd of the plain version, on
+    the card through :class:`MerlLookupGrad` whenever one of them
+    requires grad. On the card the tables must be float32 (see
+    :class:`~dj_brdf_torch.models.merl.Merl` for dtypes)."""
     if tables.device.type == "cpu":
         return plain_merl_lookup(tables, idx, scales, iz)
+    if tables.requires_grad or (iz is not None and iz.requires_grad):
+        return MerlLookupGrad.apply(tables, iz, idx, scales,
+                                    kernel_merl_lookup)
     return kernel_merl_lookup(tables, idx, scales, iz)
 
 

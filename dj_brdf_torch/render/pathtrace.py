@@ -26,7 +26,9 @@ Counterpart of ``dj_brdf_tpu/render/pathtrace.py``. ``lax.scan``
 becomes a Python loop over bounces, and the random numbers come from an
 explicit ``torch.Generator`` on the render's device, or are injected
 (``u``, ``u_env``, ``jitter_offsets``) so a test can feed both packages
-the same numbers. Sharding (``mesh=``) is not ported yet and raises.
+the same numbers. With ``mesh=`` the pixels are sharded over the ranks
+of a ``torch.distributed`` group (each rank traces every sample of its
+pixels) and the image is all-gathered.
 """
 
 from __future__ import annotations
@@ -346,14 +348,6 @@ def _resolve_scene(infos, tex_ctx, is_sphere, px, py, pz, cone_w=None):
     return pv, _make_fres_fn(infos, is_sphere, pv)
 
 
-def _check_ported(mesh):
-    """Raise for what a later slice ports, naming it, before any work."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharded rendering) is not ported yet: it comes with "
-            "slice 4 (torch.distributed)")
-
-
 def _first_tensor(obj, depth=0):
     """The first tensor among a (nested) dataclass's fields."""
     if isinstance(obj, torch.Tensor):
@@ -583,9 +577,18 @@ def render(sphere_mat, floor_mat, light_dir, light_radiance, sky_radiance,
     else on the card (without a card that raises); on a CUDA device
     every step runs there.
 
-    ``mesh=`` is not ported yet and raises ``NotImplementedError``."""
+    ``mesh``: a :class:`~dj_brdf_torch.parallel.mesh.Mesh`. The rays are
+    sample-major (ray ``s * P + p`` is sample ``s`` of pixel ``p``, P =
+    res*res), and the spp-deduplicated first bounce needs every sample of
+    a pixel in one place, so the PIXEL axis is sharded: each rank traces
+    all spp samples of its block of pixels (padded to a multiple of the
+    ranks). ``u``, ``u_env`` and the jitter offsets are drawn (or given)
+    globally and sliced the same way, so the sharded frame equals the
+    unsharded one; the per-pixel radiance is all-gathered. Gradients
+    w.r.t. the materials and the envmap reach every rank as the
+    unsharded gradient (:meth:`~dj_brdf_torch.parallel.mesh.Mesh.
+    replicated` behind a differentiable gather)."""
     mats = (sphere_mat, floor_mat)
-    _check_ported(mesh)
     device = _render_device(u, u_env, generator, (*mats, envmap))
     f32 = dict(dtype=torch.float32, device=device)
     light_dir = normalize(torch.as_tensor(light_dir, **f32))
@@ -609,33 +612,66 @@ def render(sphere_mat, floor_mat, light_dir, light_radiance, sky_radiance,
         u = torch.rand((max_bounces, n_rays, 2), generator=generator, **f32)
     u = _uniforms("u", u, (max_bounces, n_rays, 2), f32)
     cone_spread0 = 2.0 * _FOV_SCALE / res
-
-    # static material dispatch: both materials fused-capable -> the flat
-    # component-array (SoA) loops; otherwise the generic both-evaluate
-    # loops on (N, 3) tensors
-    infos = (_fused_info(sphere_mat), _fused_info(floor_mat))
-    fused = all(x is not None for x in infos)
-    if not fused:
-        _check_no_textured_fallback(mats)
     if envmap is not None:
         if u_env is None:
             u_env = torch.rand((max_bounces, n_rays, 3), generator=generator,
                                **f32)
         u_env = _uniforms("u_env", u_env, (max_bounces, n_rays, 3), f32)
+    n_pix = res * res
+    if mesh is not None:
+        # every sample of this rank's pixels, still sample-major
+        pix = torch.arange(mesh.padded(n_pix),
+                           device=device)[mesh.block(n_pix)] % n_pix
+        rays = (torch.arange(spp, device=device)[:, None] * n_pix
+                + pix[None, :]).reshape(-1)
+        ro, rd, u = ro[rays], rd[rays], u[:, rays]
+        if u_env is not None:
+            u_env = u_env[:, rays]
+        mats, envmap = mesh.replicated((mats, envmap))
+    radiance = _trace(mats, light_dir, light_rad, sky_rad, ro, rd, u,
+                      u_env, envmap, spp, dedup_ok=not jitter,
+                      cone_spread0=cone_spread0)
+    pixels = _sample_mean(radiance, spp)
+    if mesh is not None:
+        pixels = mesh.all_gather(pixels, n=n_pix)
+    return pixels.reshape(res, res, 3)
+
+
+def _sample_mean(radiance, spp):
+    """(P, 3) pixels from the (spp * P, 3) sample-major radiance: the spp
+    samples added one after another, then divided. Elementwise adds give
+    every pixel the same bits whatever block of pixels it is traced in;
+    ``mean(dim=0)`` on the CPU sums in an order that depends on P."""
+    samples = radiance.reshape(spp, -1, 3)
+    total = samples[0]
+    for k in range(1, spp):
+        total = total + samples[k]
+    return total / spp
+
+
+def _trace(mats, light_dir, light_rad, sky_rad, ro, rd, u, u_env, envmap,
+           spp, dedup_ok, cone_spread0):
+    """Per-ray radiance (N, 3) of sample-major rays, by the loop the
+    materials and the emitter select."""
+    # static material dispatch: both materials fused-capable -> the flat
+    # component-array (SoA) loops; otherwise the generic both-evaluate
+    # loops on (N, 3) tensors
+    infos = tuple(_fused_info(mat) for mat in mats)
+    fused = all(x is not None for x in infos)
+    if not fused:
+        _check_no_textured_fallback(mats)
+    if envmap is not None:
         if fused:
-            return _render_envmap_soa(infos, envmap, ro, rd, u, u_env, res,
-                                      spp, cone_spread0=cone_spread0)
-        return _render_envmap(mats, envmap, ro, rd, u, u_env, res, spp)
+            return _render_envmap_soa(infos, envmap, ro, rd, u, u_env,
+                                      cone_spread0=cone_spread0)
+        return _render_envmap(mats, envmap, ro, rd, u, u_env)
     if fused:
         return _render_soa(infos, light_dir, light_rad, sky_rad, ro, rd, u,
-                           res, spp, dedup_ok=not jitter,
-                           cone_spread0=cone_spread0)
-    return _render_generic(mats, light_dir, light_rad, sky_rad, ro, rd, u,
-                           res, spp)
+                           spp, dedup_ok=dedup_ok, cone_spread0=cone_spread0)
+    return _render_generic(mats, light_dir, light_rad, sky_rad, ro, rd, u)
 
 
-def _render_generic(mats, light_dir, light_rad, sky_rad, ro, rd, u,
-                    res: int, spp: int):
+def _render_generic(mats, light_dir, light_rad, sky_rad, ro, rd, u):
     """The generic loop: both materials evaluated on (N, 3) tensors,
     selected per ray."""
     n_rays = rd.shape[0]
@@ -679,12 +715,11 @@ def _render_generic(mats, light_dir, light_rad, sky_rad, ro, rd, u,
         rd = torch.where(alive[..., None], rd_new, rd)
     # terminate remaining paths into the sky
     hit, _, _, _ = _intersect(ro, rd)
-    radiance = radiance + torch.where((alive & ~hit)[..., None],
-                                      throughput * sky_rad, 0.0)
-    return radiance.reshape(spp, res, res, 3).mean(dim=0)
+    return radiance + torch.where((alive & ~hit)[..., None],
+                                  throughput * sky_rad, 0.0)
 
 
-def _render_envmap(mats, em, ro, rd, u, u_env, res: int, spp: int):
+def _render_envmap(mats, em, ro, rd, u, u_env):
     """Environment-lit transport with multiple importance sampling, the
     generic loop (any material with evalp/pdf/evalp_is).
 
@@ -760,9 +795,8 @@ def _render_envmap(mats, em, ro, rd, u, u_env, res: int, spp: int):
     le_fin, pdf_env_fin = env_lookup(rd)
     w_mis = torch.where(prev_pdf < 0.0, 1.0,
                         power_heuristic(prev_pdf, pdf_env_fin))
-    radiance = radiance + torch.where(
+    return radiance + torch.where(
         miss[..., None], throughput * le_fin * w_mis[..., None], 0.0)
-    return radiance.reshape(spp, res, res, 3).mean(dim=0)
 
 
 def _bounce_soa(infos, tex_ctx, state, cone, u_b, light_dir, light_rad,
@@ -846,7 +880,7 @@ def _bounce_soa(infos, tex_ctx, state, cone, u_b, light_dir, light_rad,
 
 
 def _render_soa(infos, light_dir, light_rad, sky_rad, ro, rd, u,
-                res: int, spp: int, dedup_ok: bool = True,
+                spp: int, dedup_ok: bool = True,
                 cone_spread0: float = 0.0):
     """The fused-material render loop on flat (N,) component arrays:
     path state, intersection, tangent frames and both BSDF ops stay
@@ -887,8 +921,7 @@ def _render_soa(infos, light_dir, light_rad, sky_rad, ro, rd, u,
                  torch.ones(n_rays, dtype=torch.bool, device=rd.device))
         cone = ((zeros, torch.full((n_rays,), cone_spread0, **f32))
                 if track_lod else None)
-        return _finish_soa(run_bounces(state, cone, u), sk_r, sk_g, sk_b,
-                           res, spp)
+        return _finish_soa(run_bounces(state, cone, u), sk_r, sk_g, sk_b)
 
     ldx, ldy, ldz = light_dir[0], light_dir[1], light_dir[2]
     lr_r, lr_g, lr_b = light_rad[0], light_rad[1], light_rad[2]
@@ -961,13 +994,12 @@ def _render_soa(infos, light_dir, light_rad, sky_rad, ro, rd, u,
     if track_lod:
         cone = (tile(cw_p), cone_spread0 + torch.where(
             alive1, torch.clamp(pv1t[0], max=1.0), 0.0))
-    return _finish_soa(run_bounces(state, cone, u[1:]), sk_r, sk_g, sk_b,
-                       res, spp)
+    return _finish_soa(run_bounces(state, cone, u[1:]), sk_r, sk_g, sk_b)
 
 
-def _finish_soa(state, sk_r, sk_g, sk_b, res: int, spp: int):
-    """Terminate remaining live paths into the sky and assemble the
-    image from the SoA carry."""
+def _finish_soa(state, sk_r, sk_g, sk_b):
+    """Terminate remaining live paths into the sky: the per-ray radiance
+    (N, 3) of the SoA carry."""
     (rox, roy, roz, rdx, rdy, rdz, th_r, th_g, th_b,
      ra_r, ra_g, ra_b, alive) = state
     hit = _intersect_soa(rox, roy, roz, rdx, rdy, rdz)[0]
@@ -976,11 +1008,10 @@ def _finish_soa(state, sk_r, sk_g, sk_b, res: int, spp: int):
     ra_g = ra_g + torch.where(miss, th_g * sk_g, 0.0)
     ra_b = ra_b + torch.where(miss, th_b * sk_b, 0.0)
 
-    radiance = torch.stack([ra_r, ra_g, ra_b], -1)
-    return radiance.reshape(spp, res, res, 3).mean(dim=0)
+    return torch.stack([ra_r, ra_g, ra_b], -1)
 
 
-def _render_envmap_soa(infos, em, ro, rd, u, u_env, res: int, spp: int,
+def _render_envmap_soa(infos, em, ro, rd, u, u_env,
                        cone_spread0: float = 0.0):
     """Environment-lit MIS transport on flat component arrays with the
     fused samplers, the SoA counterpart of :func:`_render_envmap`. Per
@@ -1111,5 +1142,4 @@ def _render_envmap_soa(infos, em, ro, rd, u, u_env, res: int, spp: int,
     ra_r = ra_r + torch.where(miss, th_r * mr * w_mis, 0.0)
     ra_g = ra_g + torch.where(miss, th_g * mg * w_mis, 0.0)
     ra_b = ra_b + torch.where(miss, th_b * mb * w_mis, 0.0)
-    radiance = torch.stack([ra_r, ra_g, ra_b], -1)
-    return radiance.reshape(spp, res, res, 3).mean(dim=0)
+    return torch.stack([ra_r, ra_g, ra_b], -1)

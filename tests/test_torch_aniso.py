@@ -28,6 +28,7 @@ from dj_brdf_torch.fit import tabular_aniso as tta
 from dj_brdf_torch.microfacet import ndf as tndf
 from dj_brdf_torch.microfacet.params import MicrofacetParams as TParams
 from dj_brdf_torch.models import utia as tutia
+from dj_brdf_torch.parallel.mesh import Mesh
 
 ELLIPSE = (0.4, 0.15, 0.35)     # tests/test_render_fit_parallel.py:133-134
 TABLES = ("p22", "sigma", "pdf1", "cdf1", "pdf2", "cdf2")
@@ -180,9 +181,17 @@ def test_builder_in_float64_matches_jax_x64(x64):
 
 
 def test_builder_rejects_mesh_and_unknown_power():
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        tta.build_tabular_anisotropic(torch_eval(), 8, 8, mesh=object(),
-                                      device="cpu")
+    """``mesh=`` with an explicit ``power`` raises as the JAX package's
+    does (the sharded stage 1 always runs in f32); an unknown ``power``
+    raises. The sharded builder itself: tests/test_torch_mesh.py."""
+    mesh = Mesh(rank=0, size=1, device=torch.device("cpu"))
+    for power in ("host", "device"):
+        with pytest.raises(ValueError, match="power='auto'"):
+            jta.build_tabular_anisotropic(jax_eval(), 8, 8, power=power,
+                                          mesh=object())
+        with pytest.raises(ValueError, match="power='auto'"):
+            tta.build_tabular_anisotropic(torch_eval(), 8, 8, power=power,
+                                          mesh=mesh, device="cpu")
     with pytest.raises(ValueError, match="power"):
         tta.build_tabular_anisotropic(torch_eval(), 8, 8, power="sometimes",
                                       device="cpu")

@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from dj_brdf_tpu import fresnel as jfres
 from dj_brdf_tpu.fit import batch as jbatch
@@ -15,11 +16,13 @@ from dj_brdf_tpu.microfacet import ndf as jndf
 from dj_brdf_tpu.microfacet.params import MicrofacetParams as JParams
 from dj_brdf_torch import convert
 from dj_brdf_torch import fresnel as tfres
+from dj_brdf_torch.core.pytree import tree_leaves
 from dj_brdf_torch.fit import batch as tbatch
 from dj_brdf_torch.fit import lsq as tlsq
 from dj_brdf_torch.microfacet import brdf as tmf
 from dj_brdf_torch.microfacet import ndf as tndf
 from dj_brdf_torch.microfacet.params import MicrofacetParams as TParams
+from dj_brdf_torch.parallel.mesh import make_mesh
 
 FAMILIES = {"ggx": "GGX", "beck": "Beckmann"}
 TRUE_F0 = np.asarray([0.9, 0.6, 0.3], np.float32)
@@ -28,6 +31,15 @@ TRUE_F0 = np.asarray([0.9, 0.6, 0.3], np.float32)
 @pytest.fixture(autouse=True)
 def _one_thread():
     torch.set_num_threads(1)
+
+
+@pytest.fixture
+def world_one():
+    """A mesh over a world of one (gloo, in-process), destroyed after
+    the test so that no later mesh in this process finds it."""
+    mesh = make_mesh(1, "cpu")
+    yield mesh
+    dist.destroy_process_group()
 
 
 def hemi_dirs(rng, n):
@@ -149,10 +161,22 @@ def test_fit_materials_layered_matches_fused():
     np.testing.assert_allclose(pa.ax.numpy(), pn.ax.numpy(), rtol=1e-3)
 
 
-def test_fit_materials_rejects_mesh_and_unknown_fused():
+def test_fit_materials_rejects_mesh_and_unknown_fused(world_one):
+    """``mesh=`` over a world of one (gloo, in-process) gives the
+    unsharded fit bit for bit (2 and 4 ranks: tests/test_torch_mesh.py);
+    an unknown ``fused`` raises."""
+    rng = np.random.default_rng(4)
+    i, o = hemi_dirs(rng, 256), hemi_dirs(rng, 256)
+    targets = torch.from_numpy(_batch_targets(
+        "ggx", [0.2, 0.5, 0.3], np.asarray([[0.9, 0.6, 0.3]] * 3,
+                                           np.float32), i, o))
+    ti, to = torch.from_numpy(i), torch.from_numpy(o)
+    want = tbatch.fit_materials(targets, ti, to, steps=5)
+    got = tbatch.fit_materials(targets, ti, to, steps=5,
+                               mesh=world_one)
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(g, w)
     targets, i = torch.zeros((2, 4, 3)), torch.zeros((4, 3))
-    with pytest.raises(NotImplementedError):
-        tbatch.fit_materials(targets, i, i, steps=1, mesh=object())
     with pytest.raises(ValueError):
         tbatch.fit_materials(targets, i, i, steps=1, fused="sometimes")
 

@@ -324,6 +324,30 @@ def test_lookup_kernel_refuses_strided_and_grad_tensors_on_gpu():
 
 
 @needs_cuda
+@pytest.mark.parametrize("n", [3000, 200_000], ids=["direct", "packed"])
+def test_lookup_backward_on_gpu_matches_cpu_autograd(n):
+    """merl_lookup of CUDA tables and iz that require grad: the forward
+    through the kernel (one launch), the gradients w.r.t. both against
+    the CPU path's autograd, rtol 1e-5 (atomics reorder the f32 sums)."""
+    tables, idx, iz = lookup_inputs(3, n, p=100_000, seed=4)
+    g = torch.rand((3, n, 3), generator=torch.Generator().manual_seed(1))
+    grads = []
+    for device in ("cpu", CUDA):
+        t = tables.to(device).clone().requires_grad_(True)
+        z = iz.to(device).clone().requires_grad_(True)
+        before = mg.LAUNCHES["merl_lookup"]
+        out = mg.merl_lookup(t, idx.to(device), SCALES, z)
+        torch.sum(out * g.to(device)).backward()
+        grads.append((out.detach().cpu(), t.grad.cpu(), z.grad.cpu()))
+        if device == CUDA:
+            assert mg.LAUNCHES["merl_lookup"] - before == 2  # fwd, rgb
+    (o0, t0, z0), (o1, t1, z1) = grads
+    assert torch.equal(o0, o1)
+    torch.testing.assert_close(t1, t0, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(z1, z0, rtol=1e-5, atol=1e-6)
+
+
+@needs_cuda
 def test_merl_targets_on_gpu_go_through_the_kernel():
     """merl_targets on CUDA tensors launches the lookup once and agrees
     bit for bit with the plain version at the same indices."""

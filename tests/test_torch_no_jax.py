@@ -43,6 +43,12 @@ SLICE_MODULES = [
     "dj_brdf_torch.cli.nrm_utia", "dj_brdf_torch.fit.tabular_aniso",
     "dj_brdf_torch.models.sgd", "dj_brdf_torch.models.abc_model",
     "dj_brdf_torch.io.native", "dj_brdf_torch.io.hdr",
+    # slice 4: distribution, utilities, the rest of the CLI
+    "dj_brdf_torch.parallel.mesh", "dj_brdf_torch.parallel.power",
+    "dj_brdf_torch.utils", "dj_brdf_torch.utils.checkpoint",
+    "dj_brdf_torch.utils.profiling", "dj_brdf_torch.io.png",
+    "dj_brdf_torch.cli.render", "dj_brdf_torch.cli.plot_cdf",
+    "dj_brdf_torch.cli.dmap2nmap", "dj_brdf_torch.cli.nmap2leanmap",
 ]
 
 

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from dj_brdf_tpu import fresnel as jfres
 from dj_brdf_tpu.io import synth as jsynth
@@ -35,6 +36,7 @@ from dj_brdf_torch.microfacet import brdf as tbrdf
 from dj_brdf_torch.microfacet import ndf as tndf
 from dj_brdf_torch.microfacet.params import MicrofacetParams as TParams
 from dj_brdf_torch.models.lambert import Lambert as TLambert
+from dj_brdf_torch.parallel.mesh import make_mesh
 from dj_brdf_torch.ops import soa as tsoa
 from dj_brdf_torch.render import materials as tmat
 from dj_brdf_torch.render import pathtrace as tpt
@@ -50,6 +52,15 @@ PV = [0.35, 0.18, 0.25, 0.06, -0.04, 0.9, 0.6, 0.3]
 @pytest.fixture(autouse=True)
 def _one_thread():
     torch.set_num_threads(1)
+
+
+@pytest.fixture
+def world_one():
+    """A mesh over a world of one (gloo, in-process), destroyed after
+    the test so that no later mesh in this process finds it."""
+    mesh = make_mesh(1, "cpu")
+    yield mesh
+    dist.destroy_process_group()
 
 
 def t(x):
@@ -499,14 +510,20 @@ def test_pathtrace_default_generator_and_shapes():
                    max_bounces=2, u=torch.rand(1, 128, 2))
 
 
-def test_unported_render_arguments_raise():
-    """``mesh=`` is not ported and raises; what the JAX package rejects,
-    the port rejects the same way: a textured material beside one the
-    fused loop cannot take, and a material class without a counterpart."""
+def test_unported_render_arguments_raise(world_one):
+    """``mesh=`` over a world of one (gloo, in-process) renders the
+    unsharded frame bit for bit (2 and 4 ranks: tests/test_torch_mesh.py);
+    what the JAX package rejects, the port rejects the same way: a
+    textured material beside one the fused loop cannot take, and a
+    material class without a counterpart."""
     ts, tf = (convert.material_from_jax(m) for m in scene("ggx"))
     args = (LIGHT, LIGHT_RAD, SKY)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tpt.render(ts, tf, *args, res=4, spp=1, mesh=object())
+    gen = torch.Generator().manual_seed(0)
+    want = tpt.render(ts, tf, *args, res=4, spp=2, generator=gen)
+    gen = torch.Generator().manual_seed(0)
+    got = tpt.render(ts, tf, *args, res=4, spp=2, generator=gen,
+                     mesh=world_one)
+    assert torch.equal(got, want)
     js = jmat.TexturedMicrofacetMaterial(
         jndf.GGX(), jfres.Schlick(f0=jnp.ones(3)), jnp.ones((2, 2)),
         jnp.ones((2, 2)), jnp.zeros(()))

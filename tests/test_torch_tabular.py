@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from dj_brdf_tpu import fresnel as jfres
 from dj_brdf_tpu.cli import merl_params as jcli
@@ -29,11 +30,13 @@ from dj_brdf_tpu.microfacet import ndf as jndf
 from dj_brdf_tpu.microfacet.params import MicrofacetParams as JParams
 from dj_brdf_tpu.models.merl import Merl as JMerl
 from dj_brdf_torch import convert
+from dj_brdf_torch.core.pytree import tree_leaves
 from dj_brdf_torch.fit import batch as tbatch
 from dj_brdf_torch.fit import moments as tmom
 from dj_brdf_torch.fit import tabular as ttab
 from dj_brdf_torch.microfacet import ndf as tndf
 from dj_brdf_torch.models.merl import Merl as TMerl
+from dj_brdf_torch.parallel.mesh import make_mesh
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 P22_RTOL, QF_ATOL, FRES_RTOL, FRES_ATOL, ALPHA_RTOL = 2e-5, 1e-6, 1e-4, 1e-5, 1e-5
@@ -43,6 +46,15 @@ TINY = 1e-30
 @pytest.fixture(autouse=True)
 def _one_thread():
     torch.set_num_threads(1)
+
+
+@pytest.fixture
+def world_one():
+    """A mesh over a world of one (gloo, in-process), destroyed after
+    the test so that no later mesh in this process finds it."""
+    mesh = make_mesh(1, "cpu")
+    yield mesh
+    dist.destroy_process_group()
 
 
 def jax_material(dist, alpha, f0):
@@ -223,7 +235,7 @@ def test_tabulate_merl_batch_matches_jax(tables):
     np.testing.assert_allclose([tag[0], tab_[1]], [0.2874, 0.1498], atol=5e-4)
 
 
-def test_tabulate_merl_batch_is_per_table_build_tabular(tables):
+def test_tabulate_merl_batch_is_per_table_build_tabular(tables, world_one):
     res = 24
     td, tf, tab_, tag = tbatch.tabulate_merl_batch(torch.from_numpy(tables),
                                                    res)
@@ -234,9 +246,12 @@ def test_tabulate_merl_batch_is_per_table_build_tabular(tables):
         check(td.qf[k], d.qf, atol=QF_ATOL)
         check(tf[k], f.points, rtol=1e-6, atol=1e-7)
         check(tag[k], tmom.fit_ggx_parameters(d).ax, rtol=1e-6)
-    with pytest.raises(NotImplementedError):
-        tbatch.tabulate_merl_batch(torch.from_numpy(tables), res,
-                                   mesh=object())
+    # the material axis over a world of one (gloo, in-process) gives the
+    # same tables bit for bit (2 and 4 ranks: tests/test_torch_mesh.py)
+    got = tbatch.tabulate_merl_batch(torch.from_numpy(tables), res,
+                                     mesh=world_one)
+    for g, w in zip(tree_leaves(got), tree_leaves((td, tf, tab_, tag))):
+        assert torch.equal(g, w)
 
 
 @pytest.fixture(scope="module")
@@ -284,7 +299,8 @@ def test_cli_refuses_a_missing_device_and_mesh(merl_files, tmp_path):
     out = str(tmp_path / "p.txt")
     with pytest.raises(RuntimeError, match="CUDA"):
         tcli.main(["-o", out, merl_files[0]])      # --device cuda by default
-    with pytest.raises(NotImplementedError):
+    # a mesh of 2 needs 2 processes, which torchrun starts
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         tcli.main(["--device", "cpu", "--mesh", "2", "-o", out,
                    merl_files[0]])
     assert not os.path.exists(out)

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from dj_brdf_tpu import fresnel as jfres
 from dj_brdf_tpu.io import synth as jsynth
@@ -24,6 +25,7 @@ from dj_brdf_tpu.parallel import integrals as jint
 from dj_brdf_torch import convert
 from dj_brdf_torch import fresnel as tfres
 from dj_brdf_torch.cli import nrm_utia
+from dj_brdf_torch.core.math import from_spherical
 from dj_brdf_torch.io import synth as tsynth
 from dj_brdf_torch.io import utia_io as tio
 from dj_brdf_torch.microfacet import brdf as tmf
@@ -32,6 +34,7 @@ from dj_brdf_torch.microfacet.params import MicrofacetParams as TParams
 from dj_brdf_torch.models import utia as tutia
 from dj_brdf_torch.models.lambert import Lambert as TLambert
 from dj_brdf_torch.parallel import integrals as tint
+from dj_brdf_torch.parallel.mesh import make_mesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ELLIPSE = (0.3, 0.15, 0.4)
@@ -40,6 +43,15 @@ ELLIPSE = (0.3, 0.15, 0.4)
 @pytest.fixture(autouse=True)
 def _one_thread():
     torch.set_num_threads(1)
+
+
+@pytest.fixture
+def world_one():
+    """A mesh over a world of one (gloo, in-process), destroyed after
+    the test so that no later mesh in this process finds it."""
+    mesh = make_mesh(1, "cpu")
+    yield mesh
+    dist.destroy_process_group()
 
 
 def dirs(rng, n, lo=0.15, hi=1.5):
@@ -216,12 +228,22 @@ def test_furnace_test_matches_jax(albedo):
     np.testing.assert_allclose(got[1], want[1], rtol=1e-5)
 
 
-def test_mesh_raises():
-    tu = tutia.Utia.build(torch.zeros(tutia.TABLE_SHAPE))
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        tint.furnace_integral(tu.evalp, torch.zeros(1, 3), mesh=object())
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        tint.furnace_test(tu.evalp, 2, 2, mesh=object(), device="cpu")
+def test_mesh_raises(world_one):
+    """``mesh=`` over a world of one (gloo, in-process): the integrals
+    and the test's verdict equal the unsharded ones bit for bit (2 and 4
+    ranks: tests/test_torch_mesh.py); a mesh asked on the card while the
+    gloo group lives raises instead of quietly running on the CPU."""
+    raw = tsynth.bake_utia(TLambert(reflectance=torch.full((3,), 0.7)).eval,
+                           "cpu")
+    tu = tutia.Utia.build(torch.clamp(raw, min=0.0).float() / 140.0)
+    mesh = world_one
+    o = from_spherical(torch.linspace(0.1, 1.4, 5), torch.linspace(0.0, 3.0, 5))
+    assert torch.equal(tint.furnace_integral(tu.evalp, o, 8, 16, mesh=mesh),
+                       tint.furnace_integral(tu.evalp, o, 8, 16))
+    assert tint.furnace_test(tu.evalp, 3, 5, mesh=mesh, device="cpu") == \
+        tint.furnace_test(tu.evalp, 3, 5, device="cpu")
+    with pytest.raises(ValueError, match="nccl"):
+        make_mesh(1, "cuda")
 
 
 def run_nrm_utia(*args):
@@ -252,8 +274,8 @@ def test_nrm_utia_cli_on_the_cpu(tmp_path):
 def test_nrm_utia_mesh_and_missing_card_raise(tmp_path):
     path = str(tmp_path / "good.bin")
     tio.save_utia(path, np.zeros(tutia.TABLE_SHAPE))
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        nrm_utia.main(["--device", "cpu", "--mesh", "2", path])
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 3"):
+        nrm_utia.main(["--device", "cpu", "--mesh", "3", path])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             nrm_utia.main([path])
