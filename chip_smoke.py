@@ -4,7 +4,8 @@ measured MERL data through tabulation to fitted roughness, the autodiff
 cross-check of the fit step, rendering, UTIA data through the
 anisotropic tabulation to a fit and a render, the SGD/ABC fits with
 the native file I/O, the MERL lookup's backward, the sharded paths over
-an NCCL process group, and the programs and utilities.
+an NCCL process group, the programs and utilities, and the port's bench
+and tools.
 
     python3 chip_smoke.py [--seed 0] [--out results.json] [--baseline DIR]
 
@@ -172,6 +173,24 @@ Phases, one line each; any failure raises and exits non-zero:
    the CPU; checkpoint round trips of phase 20's fitted M = 100 state and
    90x90 table; a ``trace()`` of one fit step, which must show the fit
    kernel.
+22. the port's programs at the repo root. First the kernels they run,
+   at their shapes and on their own inputs, against the plain versions
+   (phase 2's tolerances; the lookup bit for bit): K1 at the headline's
+   2^23, K2 at ``fit_step_beckmann``'s, K3 at ``fit_batch_step``'s 16 x
+   2^20, the lookup at ``merl_eval``'s one table x 2^23, K1 at
+   ``bench_scaling``'s 2^20. Then ``python -m dj_brdf_torch.bench``
+   in a subprocess at ``bench.py``'s sizes (exit 0, one line under 2,000
+   characters, every metric of ``bench.py`` finite and positive, none
+   failed, the headline consistent with the fit step; per its stderr
+   records the fused fit kernel launched in the headline, both fit steps
+   and the batched step, the lookup in ``merl_eval`` and the tabulation;
+   the bench's SASS counts equal to phase 1's); each rate beside the
+   earlier phase's timing of the same call at the same shape, as a ratio;
+   ``tools.bench_scaling --devices 1`` (an NCCL world of one card) equal
+   to the unsharded step bit for bit; ``tools.validate_merl_fits`` on
+   the synthetic corpus on the card (exit 0, three materials pinned ok).
+   The bench's stderr (every metric's record) goes into ``--out``'s
+   results.
 
 Each main path (phases 3-5, the gather path of 7, 8, 9, 11, the
 measured render of 13, the measured envmap render of 15, the UTIA fit
@@ -179,8 +198,11 @@ of 17, the SGD fit of 18, the backward of 19 and the sharded calls of
 20) runs with
 the launch counts of the wrappers set to 0 just before it and read just
 after; each kernel must have launched on its path (the fused fit
-exactly once per step, K4 once per call). The line before the last is a
-JSON summary of the kernels; the last line is the device record
+exactly once per step, K4 once per call). Phase 22's bench runs in a
+process of its own, whose counts start at 0; each metric's record
+carries the launches it made, which the kernels line adds. The line
+before the last is a JSON summary of the kernels; the last line is the
+device record
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -693,7 +715,7 @@ def device_ms(fn, reps):
                          "kernels in three sessions")
 
 
-def compare(name, family, pvecs, dirs, tgts, n):
+def compare(name, family, pvecs, dirs, tgts, n, phase=2):
     """Kernel vs plain version on the same inputs, and a second launch
     equal to the first bit for bit; returns the largest absolute error of
     the normalized loss and gradient."""
@@ -713,7 +735,7 @@ def compare(name, family, pvecs, dirs, tgts, n):
     grad_ok = ((gk - gp).abs() <= atol + GRAD_RTOL * gp.abs()).all()
     err = max(float((lk - lp).abs().max()), float((gk - gp).abs().max()))
     rel = float(((lk - lp).abs() / lp.abs()).max())
-    log(f"phase 2 {name}: max|loss rel err| {rel:.3e}, max abs err {err:.3e}"
+    log(f"phase {phase} {name}: max|loss rel err| {rel:.3e}, max abs err {err:.3e}"
         f", a second launch equal bit for bit -> "
         f"{'ok' if loss_ok and grad_ok else 'MISMATCH'}")
     if not (loss_ok and grad_ok):
@@ -1045,9 +1067,15 @@ def main(argv=None):
     measured_lookups += sharded["merl_lookup"]
     phase21_cli_utils(mg, ff, table0, fitted, aniso, i, o, alphas, f0s,
                       results)
+    benched, bench_errs = phase22_bench(ops, results)
+    for family in ("ggx", "beck"):
+        errs[family] = max(errs[family], bench_errs[family])
+    launches["ggx"] += benched["ggx"]
+    launches["beck"] += benched["beck"]
     main_launches = dict(launches)
     main_launches["merl_lookup"] = (results["merl_fit"]["launches_lookup"]
-                                    + lookup_launches + measured_lookups)
+                                    + lookup_launches + measured_lookups
+                                    + benched["merl_lookup"])
     main_launches["fused_fit_ad"] = k4["launches"]
     results["launches"] = main_launches
     if args.out:
@@ -1074,7 +1102,9 @@ def main(argv=None):
                     "source": GATHER_SOURCE,
                     "replaces": "tools/gather_experiments.py:113",
                     "launches": main_launches["merl_lookup"],
-                    "max_abs_err": lk["max_abs_err"], "ms": lk["kernel_ms"],
+                    "max_abs_err": max(lk["max_abs_err"],
+                                       bench_errs["merl_lookup"]),
+                    "ms": lk["kernel_ms"],
                     "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
                     "bound_by": lk["bound_by"], "library_ms": None})
     for name, replaces in (("gather_plane", "tools/gather_experiments.py:113"),
@@ -1113,6 +1143,16 @@ def timed_pair(kernel, plain, kernel_reps, plain_reps):
     k2 = cuda_ms(kernel, kernel_reps)
     p2 = cuda_ms(plain, plain_reps)
     return min(k1, k2), min(p1, p2), [k1, k2], [p1, p2]
+
+
+def run_module(module, *args, timeout=600):
+    """``python -m module args`` from the checkout's root; returns the
+    finished process and its wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=ROOT),
+                          capture_output=True, text=True, timeout=timeout)
+    return proc, time.perf_counter() - t0
 
 
 def exact(name, got, want):
@@ -1522,13 +1562,8 @@ def phase10_cli(tables, ab, ag, results):
             files.append(os.path.join(tmp, f"synth-{k:03d}.binary"))
             save_merl(files[-1], tables[k])
         out = os.path.join(tmp, "params.txt")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "dj_brdf_torch.cli.merl_params",
-             "--device", "cuda", "-o", out, *files], cwd=ROOT,
-            env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
-            text=True, timeout=600)
-        wall = time.perf_counter() - t0
+        proc, wall = run_module("dj_brdf_torch.cli.merl_params", "--device",
+                                "cuda", "-o", out, *files)
         if proc.returncode != 0:
             raise AssertionError(f"phase 10: merl_params exited "
                                  f"{proc.returncode}:\n{proc.stderr}")
@@ -2340,13 +2375,9 @@ def phase17_utia(mg, ff, dgen, results):
         save_utia(os.path.join(tmp.name, name), t)
 
     def nrm_utia(*names):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "dj_brdf_torch.cli.nrm_utia", "--device",
-             "cuda", *(os.path.join(tmp.name, n) for n in names)], cwd=ROOT,
-            env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
-            text=True, timeout=600)
-        wall = time.perf_counter() - t0
+        proc, wall = run_module(
+            "dj_brdf_torch.cli.nrm_utia", "--device", "cuda",
+            *(os.path.join(tmp.name, n) for n in names))
         verdicts = re.findall(r"=> (ok|FAILURE) \(max integral ([0-9.]+)\)",
                               proc.stdout)
         if proc.returncode not in (0, 1) or len(verdicts) != len(names):
@@ -3086,12 +3117,7 @@ def phase20_mesh(mg, ff, alphas, f0s, i, o, i1, o1, table0, cli_tables,
     params = os.path.join(tmp.name, "params.txt")
 
     def program(module, *args):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", module, "--device", "cuda", "--mesh", "1",
-             *args], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
-            capture_output=True, text=True, timeout=600)
-        return proc, time.perf_counter() - t0
+        return run_module(module, "--device", "cuda", "--mesh", "1", *args)
 
     walls = out["walls_s"]
     proc, walls["merl_params_mesh1"] = program(
@@ -3373,6 +3399,192 @@ def phase21_cli_utils(mg, ff, table0, fitted, aniso, i, o, alphas, f0s,
     out["trace_kernel"] = hits[0]
     results["cli_utils"] = out
     tmp.cleanup()
+
+
+# phase 22: the port's bench at bench.py's sizes, its tools
+BENCH_TIMEOUT = 900
+N_SCALING = 1 << 20             # bench_scaling's default batch
+# each bench metric and the earlier phase's timing of the same call at
+# the same shape, as (bench metric, label, rate of the phase from results)
+BENCH_VS_PHASES = (
+    ("ggx_evalp_fwdbwd_evals_per_s_per_chip", "K1 alone at 2^23 (phase 6)",
+     lambda r: r["timings"][f"ggx_M1_N{N_SINGLE}"]["kernel_evals_per_s"]),
+    ("fit_step_evals_per_s", "fit_lsq's median step at 2^23 (phase 5)",
+     lambda r: r["fit_lsq_ggx"]["evals_per_s"]),
+    ("utia_eval_evals_per_s", "Utia.evalp at 2^23 (phase 17)",
+     lambda r: r["utia"]["evalp"]["evals_per_s"]),
+    ("pathtrace_samples_per_s", "Beckmann-floor frame (phase 13)",
+     lambda r: r["pathtrace"]["beck"]["samples_per_s"]),
+    ("pathtrace_ggx_samples_per_s", "GGX-floor frame (phase 13)",
+     lambda r: r["pathtrace"]["ggx"]["samples_per_s"]),
+    ("pathtrace_envmap_samples_per_s", "32x64 envmap frame (phase 15)",
+     lambda r: r["envmap"]["32x64"]["samples_per_s"]),
+    ("pathtrace_envmap_1024x2048_samples_per_s",
+     "1024x2048 envmap frame (phase 15)",
+     lambda r: r["envmap"]["1024x2048"]["samples_per_s"]),
+    ("pathtrace_matpreview_samples_per_s", "matpreview frame (phase 16)",
+     lambda r: r["matpreview"]["samples_per_s"]),
+    ("power_iteration_matvecs_per_s_n8010", "8010^2 matvec (phase 17)",
+     lambda r: r["utia"]["aniso"]["matvecs_per_s"]),
+    ("aniso_fit90_wall_seconds", "90x90 build, s (phase 17)",
+     lambda r: r["utia"]["aniso"]["aniso_fit90_wall_seconds"]),
+    ("batch_tabulate_res90_materials_per_s",
+     "tabulate_merl_batch, 100 at res 90 (phase 9)",
+     lambda r: M_MERL / r["tabulate"]["wall_s"]),
+)
+
+
+def phase22_kernels(mg, ff):
+    """The kernels of the bench's and ``bench_scaling``'s paths at their
+    shapes and on their own inputs, each against its plain version (phase
+    2's tolerances, phase 8's bit for bit): K1 at the headline's 2^23, K2
+    at ``fit_step_beckmann``'s start, K3 at ``fit_batch_step``'s 16 x
+    2^20, the MERL lookup at ``merl_eval``'s one table x 2^23 and K1 at
+    ``bench_scaling``'s 2^20. Returns the largest errors: {"ggx": ...,
+    "beck": ..., "merl_lookup": ...}."""
+    from dj_brdf_torch import bench
+    from dj_brdf_torch.fit import lsq
+    from dj_brdf_torch.models import merl as merl_mod
+    from dj_brdf_torch.ops import soa
+    from dj_brdf_torch.tools import bench_scaling as bs
+
+    def rows(planes):
+        return tuple(t[None] for t in planes)
+
+    n = N_SINGLE                                 # the bench's BENCH_N
+    i, o, comp, targets, pvec = bench.headline_inputs(n, "cuda")
+    errs = {"ggx": compare(f"headline K1 M=1 N={n}", "ggx", pvec[None],
+                           comp, rows(targets), n, phase=22)}
+    start = soa.raw_to_pvec(lsq.raw_init(device="cuda"))
+    truth = torch.tensor(bench.PVEC_TRUE, device="cuda")
+    errs["beck"] = compare(
+        f"fit_step_beckmann K2 M=1 N={n}", "beck", start[None], comp,
+        rows(soa.beckmann_evalp_soa(truth, *comp)), n, phase=22)
+    bcomp, btgts, leaves = bench.batch_inputs(i, o, bench.BATCH_M)
+    nm = bcomp[0].shape[0]
+    errs["ggx"] = max(errs["ggx"], compare(
+        f"fit_batch_step K3 M={bench.BATCH_M} N={nm}", "ggx",
+        soa.raw_to_pvec(lsq.RawFit(*leaves)), bcomp, btgts, nm, phase=22))
+    del bcomp, btgts
+    tables = bench.merl_eval_table("cuda").reshape(1, 3, merl_mod.PLANE)
+    idx = merl_mod.merl_flat_index(i, o).reshape(-1).contiguous()
+    iz = i[:, 2].contiguous()
+    errs["merl_lookup"] = exact(
+        f"merl_eval lookup M=1 N={n}",
+        mg.kernel_merl_lookup(tables, idx, merl_mod.SCALES, iz),
+        mg.plain_merl_lookup(tables, idx, merl_mod.SCALES, iz))
+    log(f"phase 22 merl_eval lookup M=1 N={n}: bit for bit")
+    del i, o, comp, targets, tables, idx, iz
+    spvec, scomp, stgts = bs.make_inputs(N_SCALING, "cuda")
+    errs["ggx"] = max(errs["ggx"], compare(
+        f"bench_scaling K1 M=1 N={N_SCALING}", "ggx", spvec[None], scomp,
+        rows(stgts), N_SCALING, phase=22))
+    return errs
+
+
+def phase22_bench(ops, results):
+    """The port's programs on the card: ``python -m dj_brdf_torch.bench``
+    at bench.py's sizes (its line, its records and the kernels they
+    launched, each rate against the earlier phase's timing of the same
+    call), ``bench_scaling`` at a world of one card against the unsharded
+    step, and ``validate_merl_fits`` on the synthetic corpus. Returns the
+    bench's kernel launches and the largest errors of phase22_kernels,
+    each {"ggx": ..., "beck": ..., "merl_lookup": ...}."""
+    from dj_brdf_torch import bench
+    from dj_brdf_torch.ops import fused_fit as ff
+    from dj_brdf_torch.ops import merl_gather as mg
+    from dj_brdf_torch.tools import bench_scaling as bs
+
+    counted = {k: ops[k] for k in bench.SASS_OPS}
+    if counted != bench.SASS_OPS:
+        raise AssertionError(f"phase 22: the bench's share_of_bound takes "
+                             f"{bench.SASS_OPS} f32 operations, this build's "
+                             f"SASS has {counted} (phase 1)")
+    out = {"kernel_errs": phase22_kernels(mg, ff)}
+    torch.cuda.empty_cache()
+    proc, wall = run_module("dj_brdf_torch.bench", timeout=BENCH_TIMEOUT)
+    out["stderr"] = proc.stderr
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 22: the bench exited {proc.returncode}:"
+                             f"\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    line = json.loads(lines[-1])
+    recs = {r["metric"]: r for r in (json.loads(ln) for ln in
+                                     proc.stderr.splitlines()
+                                     if ln.startswith("{"))}
+    values = [line["value"], *line["secondary"].values()]
+    log(f"phase 22 python -m dj_brdf_torch.bench: exit 0 in {wall:.1f} s, "
+        f"{len(lines[-1])} characters: {lines[-1]}")
+    if not (len(lines) == 1 and len(lines[-1]) < 2000
+            and line["failed"] == []
+            and set(line["secondary"]) == set(bench.METRICS)
+            and all(math.isfinite(v) and v > 0 for v in values)
+            and line["consistent_vs_fit_step"]
+            and line["device"]["platform"] == "gpu"):
+        raise AssertionError("phase 22: the bench's line is not one line "
+                             "under 2,000 characters with every metric "
+                             "finite, positive and not failed, consistent "
+                             "with the fit step, from the card")
+    launched = {"ggx": 0, "beck": 0, "merl_lookup": 0}
+    for name, rec in recs.items():
+        family = "beck" if name == "fit_step_beckmann_evals_per_s" else "ggx"
+        launched[family] += rec["launches"]["fused_fit"]
+        launched["merl_lookup"] += rec["launches"]["merl_lookup"]
+    for name, kernel in ((bench.HEADLINE, "fused_fit"),
+                         ("fit_step_evals_per_s", "fused_fit"),
+                         ("fit_step_beckmann_evals_per_s", "fused_fit"),
+                         ("fit_batch_step_evals_per_s", "fused_fit"),
+                         ("merl_eval_evals_per_s", "merl_lookup"),
+                         ("batch_tabulate_res90_materials_per_s",
+                          "merl_lookup")):
+        if recs[name]["launches"][kernel] == 0:
+            raise AssertionError(f"phase 22: {name} launched no {kernel} "
+                                 "kernel")
+    shares = {name: recs[name]["share_of_bound"] for name in (
+        bench.HEADLINE, "merl_eval_evals_per_s", "fit_step_evals_per_s",
+        "fit_step_beckmann_evals_per_s", "fit_batch_step_evals_per_s")}
+    log(f"phase 22 launches by metric: "
+        f"{ {k: r['launches'] for k, r in recs.items()} }; share of the "
+        f"card's bound: {shares}")
+    ratios = {}
+    for name, label, mine in BENCH_VS_PHASES:
+        ratios[name] = recs[name]["value"] / mine(results)
+        log(f"phase 22 {name} {recs[name]['value']:.5g} / {label} "
+            f"{mine(results):.5g} = {ratios[name]:.4f}")
+    out.update(wall_s=wall, line=line, records=recs, shares=shares,
+               ratios=ratios, launches=launched)
+
+    # bench_scaling at a world of one card: the unsharded step bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        worlds = os.path.join(tmp, "worlds.json")
+        proc, wall = run_module("dj_brdf_torch.tools.bench_scaling",
+                                "--devices", "1", "--out", worlds)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 22: bench_scaling exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        with open(worlds) as fh:
+            world = json.load(fh)["1"]
+    scaling = json.loads(proc.stdout.strip().splitlines()[-1])
+    loss, grad = bs.unsharded_step(*bs.make_inputs(N_SCALING, "cuda"))
+    log(f"phase 22 bench_scaling --devices 1: exit 0 in {wall:.1f} s, "
+        f"{scaling}; loss {world['loss']!r} against the unsharded "
+        f"{float(loss)!r}, gradient equal: {world['grad'] == grad.tolist()}")
+    if world["loss"] != float(loss) or world["grad"] != grad.tolist():
+        raise AssertionError("phase 22: bench_scaling at a world of one is "
+                             "not the unsharded step bit for bit")
+    out["bench_scaling"] = {"wall_s": wall, "line": scaling}
+
+    proc, wall = run_module("dj_brdf_torch.tools.validate_merl_fits")
+    pinned = proc.stdout.count("pinned ok")
+    log(f"phase 22 validate_merl_fits: exit {proc.returncode} in {wall:.1f} "
+        f"s:\n{proc.stdout.strip()}\n{proc.stderr.strip()}")
+    if proc.returncode != 0 or pinned != 3:
+        raise AssertionError(f"phase 22: validate_merl_fits exited "
+                             f"{proc.returncode} with {pinned} of 3 "
+                             "materials pinned ok")
+    out["validate_merl_fits"] = {"wall_s": wall, "stdout": proc.stdout}
+    results["bench"] = out
+    return launched, out["kernel_errs"]
 
 
 def ab_times(root, seed):

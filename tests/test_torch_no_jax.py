@@ -49,6 +49,10 @@ SLICE_MODULES = [
     "dj_brdf_torch.utils.profiling", "dj_brdf_torch.io.png",
     "dj_brdf_torch.cli.render", "dj_brdf_torch.cli.plot_cdf",
     "dj_brdf_torch.cli.dmap2nmap", "dj_brdf_torch.cli.nmap2leanmap",
+    # slice 10: the programs at the repo root
+    "dj_brdf_torch.bench", "dj_brdf_torch.tools",
+    "dj_brdf_torch.tools.bench_scaling",
+    "dj_brdf_torch.tools.validate_merl_fits",
 ]
 
 
