@@ -30,6 +30,7 @@ from dj_brdf_torch.microfacet.ndf import GGX
 from dj_brdf_torch.models.merl import Merl
 from dj_brdf_torch.ops import soa
 from dj_brdf_torch.ops.fused_fit import fused_fit_loss
+from dj_brdf_torch.utils.profiling import span
 
 
 def sample_direction_set(n: int, generator: torch.Generator,
@@ -85,8 +86,9 @@ def tabulate_merl_batch(tables, res: int = 90, shadow: bool = True,
         tables = mesh.shard(tables)
     dists, fres = build_tabular(Merl(table=tables), res,
                                 shadow)
-    ab = moments.fit_beckmann_parameters(dists).ax
-    ag = moments.fit_ggx_parameters(dists).ax
+    with span("dj.tab.moments"):
+        ab = moments.fit_beckmann_parameters(dists).ax
+        ag = moments.fit_ggx_parameters(dists).ax
     out = (dists, fres.points, ab, ag)
     if mesh is not None:
         out = tree_map(lambda t: mesh.all_gather(t, n=m), out)

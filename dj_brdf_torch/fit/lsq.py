@@ -27,6 +27,7 @@ from dj_brdf_torch.microfacet.ndf import GGX, Beckmann
 from dj_brdf_torch.microfacet.params import MicrofacetParams
 from dj_brdf_torch.ops import soa
 from dj_brdf_torch.ops.fused_fit import fused_fit_loss
+from dj_brdf_torch.utils.profiling import span
 
 
 class RawFit(NamedTuple):
@@ -190,10 +191,11 @@ def adam_loop(vg, raw: RawFit, data, steps: int, lr: float):
     opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     values = []
     for _ in range(steps):
-        val, grads = vg(RawFit(*leaves), *data)
-        for leaf, g in zip(leaves, grads):
-            leaf.grad = g
-        opt.step()
+        with span("dj.fit.step"):
+            val, grads = vg(RawFit(*leaves), *data)
+            for leaf, g in zip(leaves, grads):
+                leaf.grad = g
+            opt.step()
         values.append(val)
     return RawFit(*leaves), torch.stack(values)
 

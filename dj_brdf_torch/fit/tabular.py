@@ -44,6 +44,7 @@ from dj_brdf_torch.core.pytree import tensor_fields
 from dj_brdf_torch.microfacet import brdf as mf
 from dj_brdf_torch.microfacet.ndf import Tabular
 from dj_brdf_torch.microfacet.params import MicrofacetParams
+from dj_brdf_torch.utils.profiling import span
 
 _NP_FLOAT = {torch.float32: np.float32, torch.float64: np.float64}
 _f = config.round_to
@@ -316,12 +317,18 @@ def build_tabular(brdf, res: int, shadow: bool = True, device="cuda"):
 
     Returns ``(Tabular, SplineFresnel)``."""
     eval_fn, model = as_model_eval(brdf)
-    K = _kernel_matrix(eval_fn, model, res, device)
-    p22, nint = normalize_p22(_power_iteration(K), return_nint=True)
-    sigma = compute_sigma(p22)
-    fres_pts = _fresnel_points(eval_fn, model, p22, sigma, res, shadow)
-    cdf = compute_cdf(p22)
-    qf = compute_qf(cdf)
+    with span("dj.tab.kernel_matrix"):
+        K = _kernel_matrix(eval_fn, model, res, device)
+    with span("dj.tab.power"):
+        p22 = _power_iteration(K)
+    with span("dj.tab.sigma"):
+        p22, nint = normalize_p22(p22, return_nint=True)
+        sigma = compute_sigma(p22)
+    with span("dj.tab.fresnel"):
+        fres_pts = _fresnel_points(eval_fn, model, p22, sigma, res, shadow)
+    with span("dj.tab.cdf"):
+        cdf = compute_cdf(p22)
+        qf = compute_qf(cdf)
     # the reference logs the normalization constant (dj_brdf.h:2302);
     # here at debug level, read back only when that level is on
     if config.logger.isEnabledFor(logging.DEBUG):

@@ -34,6 +34,7 @@ from dj_brdf_torch import config
 from dj_brdf_torch.config import logger
 from dj_brdf_torch.core.pytree import pytree_dataclass
 from dj_brdf_torch.ops import merl_gather
+from dj_brdf_torch.utils.profiling import span
 
 RES_THETA_H = 90
 RES_THETA_D = 90
@@ -164,16 +165,17 @@ class Merl:
             raise ValueError(f"MERL table must be (*B, 3, 90, 90, 180), got "
                              f"{tuple(self.table.shape)}")
         batch = self.table.shape[:-4]
-        tables = self.table.reshape(-1, 3, PLANE)
-        idx = merl_flat_index(i, o)
-        flat = idx.reshape(-1).contiguous()
-        iz = None
-        if iz_of is not None:
-            iz = torch.broadcast_to(iz_of[..., 2], idx.shape).reshape(-1)
-            iz = iz.to(tables.dtype).contiguous()
-        _debug_below_horizon(tables, flat)
-        rgb = merl_gather.merl_lookup(tables, flat, SCALES, iz)
-        return rgb.reshape(*batch, *idx.shape, 3)
+        with span("dj.merl.lookup"):
+            tables = self.table.reshape(-1, 3, PLANE)
+            idx = merl_flat_index(i, o)
+            flat = idx.reshape(-1).contiguous()
+            iz = None
+            if iz_of is not None:
+                iz = torch.broadcast_to(iz_of[..., 2], idx.shape).reshape(-1)
+                iz = iz.to(tables.dtype).contiguous()
+            _debug_below_horizon(tables, flat)
+            rgb = merl_gather.merl_lookup(tables, flat, SCALES, iz)
+            return rgb.reshape(*batch, *idx.shape, 3)
 
     def eval(self, i, o):
         """f_r lookup (reference merl::eval, dj_brdf.h:987-1024).

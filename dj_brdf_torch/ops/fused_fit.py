@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from dj_brdf_torch.ops import soa
+from dj_brdf_torch.utils.profiling import span
 
 #: launches of the CUDA kernel in this process (plain-version
 #: calls on CPU tensors do not count)
@@ -286,9 +287,10 @@ def kernel_fwdbwd_sums(pvecs, dirs, tgts, family="ggx"):
 def fwdbwd_sums(pvecs, dirs, tgts, family="ggx"):
     """Dispatch on the tensors' device: the kernel for CUDA tensors, the
     plain version for CPU tensors."""
-    if pvecs.device.type == "cpu":
-        return plain_fwdbwd_sums(pvecs, dirs, tgts, family)
-    return kernel_fwdbwd_sums(pvecs, dirs, tgts, family)
+    with span("dj.fit.kernel"):
+        if pvecs.device.type == "cpu":
+            return plain_fwdbwd_sums(pvecs, dirs, tgts, family)
+        return kernel_fwdbwd_sums(pvecs, dirs, tgts, family)
 
 
 def plain_ad_sums(pvec, dirs, tgts):

@@ -41,6 +41,7 @@ import torch
 
 from dj_brdf_torch.core.math import cross, dot, normalize, vec3
 from dj_brdf_torch.render.sphere import _build_frame
+from dj_brdf_torch.utils.profiling import span
 
 _EPS = 1e-3
 
@@ -89,8 +90,9 @@ def _occluded(pos, dir_w):
 
 def _material_eval(mats, is_sphere, fn_name, *args):
     """Static two-way material dispatch: evaluate both, select."""
-    a = getattr(mats[0], fn_name)(*args)
-    b = getattr(mats[1], fn_name)(*args)
+    with span("dj.render.bsdf"):
+        a = getattr(mats[0], fn_name)(*args)
+        b = getattr(mats[1], fn_name)(*args)
 
     def sel(x, y):
         mask = is_sphere
@@ -404,20 +406,22 @@ def _fused_nee_and_sample(infos, pv, fres_fn, is_sphere, l_comp, u1, u2,
                                        fresnel_fn=fres_fn)
         return nee + out
 
-    if fam0 == fam1 and caps0 == caps1:
-        return run(fam0, caps0)
-    if {fam0, fam1} == {"ggx", "beck"}:
-        # one dual-family pass; the GGX lanes keep their material's
-        # sampler (caps or qf)
-        is_beck = is_sphere if fam0 == "beck" else ~is_sphere
-        ggx_caps = caps0 if fam0 == "ggx" else caps1
-        return soa.mixed_nee_evalp_is_soa(pv, is_beck, lx, ly, lz,
-                                          u1, u2, ox, oy, oz, caps=ggx_caps,
-                                          with_nee_pdf=with_pdf,
-                                          fresnel_fn=fres_fn)
-    res0 = run(fam0, caps0)
-    res1 = run(fam1, caps1)
-    return tuple(torch.where(is_sphere, a, b) for a, b in zip(res0, res1))
+    with span("dj.render.bsdf"):
+        if fam0 == fam1 and caps0 == caps1:
+            return run(fam0, caps0)
+        if {fam0, fam1} == {"ggx", "beck"}:
+            # one dual-family pass; the GGX lanes keep their material's
+            # sampler (caps or qf)
+            is_beck = is_sphere if fam0 == "beck" else ~is_sphere
+            ggx_caps = caps0 if fam0 == "ggx" else caps1
+            return soa.mixed_nee_evalp_is_soa(pv, is_beck, lx, ly, lz,
+                                              u1, u2, ox, oy, oz,
+                                              caps=ggx_caps,
+                                              with_nee_pdf=with_pdf,
+                                              fresnel_fn=fres_fn)
+        res0 = run(fam0, caps0)
+        res1 = run(fam1, caps1)
+        return tuple(torch.where(is_sphere, a, b) for a, b in zip(res0, res1))
 
 
 def _fused_nee_eval(infos, pv, fres_fn, is_sphere, l_comp, o_comp):
@@ -433,11 +437,12 @@ def _fused_nee_eval(infos, pv, fres_fn, is_sphere, l_comp, o_comp):
         evalp = soa.beckmann_evalp_soa if fam == "beck" else soa.ggx_evalp_soa
         return evalp(pv, lx, ly, lz, ox, oy, oz, fresnel_fn=fres_fn)
 
-    if fam0 == fam1:
-        return run(fam0)
-    res0 = run(fam0)
-    res1 = run(fam1)
-    return tuple(torch.where(is_sphere, a, b) for a, b in zip(res0, res1))
+    with span("dj.render.bsdf"):
+        if fam0 == fam1:
+            return run(fam0)
+        res0 = run(fam0)
+        res1 = run(fam1)
+        return tuple(torch.where(is_sphere, a, b) for a, b in zip(res0, res1))
 
 
 def _fused_sample(infos, pv, fres_fn, is_sphere, u1, u2, o_comp):
@@ -455,44 +460,48 @@ def _fused_sample(infos, pv, fres_fn, is_sphere, u1, u2, o_comp):
         return soa.ggx_evalp_is_soa(pv, u1, u2, ox, oy, oz, caps=caps,
                                     fresnel_fn=fres_fn)
 
-    if fam0 == fam1 and caps0 == caps1:
-        return run(fam0, caps0)
-    if {fam0, fam1} == {"ggx", "beck"}:
-        is_beck = is_sphere if fam0 == "beck" else ~is_sphere
-        zero = torch.zeros_like(ox)
-        return soa.mixed_nee_evalp_is_soa(pv, is_beck, zero, zero, zero,
-                                          u1, u2, ox, oy, oz,
-                                          caps=caps0 or caps1,
-                                          with_nee=False, fresnel_fn=fres_fn)
-    res0 = run(fam0, caps0)
-    res1 = run(fam1, caps1)
-    return tuple(torch.where(is_sphere, a, b) for a, b in zip(res0, res1))
+    with span("dj.render.bsdf"):
+        if fam0 == fam1 and caps0 == caps1:
+            return run(fam0, caps0)
+        if {fam0, fam1} == {"ggx", "beck"}:
+            is_beck = is_sphere if fam0 == "beck" else ~is_sphere
+            zero = torch.zeros_like(ox)
+            return soa.mixed_nee_evalp_is_soa(pv, is_beck, zero, zero, zero,
+                                              u1, u2, ox, oy, oz,
+                                              caps=caps0 or caps1,
+                                              with_nee=False,
+                                              fresnel_fn=fres_fn)
+        res0 = run(fam0, caps0)
+        res1 = run(fam1, caps1)
+        return tuple(torch.where(is_sphere, a, b) for a, b in zip(res0, res1))
 
 
 def _intersect_soa(rox, roy, roz, rdx, rdy, rdz):
     """Component-array intersection (same scene and semantics as
     :func:`_intersect`): returns (hit, t, nx, ny, nz, is_sphere, px, py,
     pz)."""
-    b = rox * rdx + roy * rdy + roz * rdz
-    c = rox * rox + roy * roy + roz * roz - 1.0
-    disc = b * b - c
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
-    t_s = torch.where(disc > 0.0, -b - sq, math.inf)
-    t_s = torch.where(t_s > _EPS, t_s, math.inf)
+    with span("dj.render.intersect"):
+        b = rox * rdx + roy * rdy + roz * rdz
+        c = rox * rox + roy * roy + roz * roz - 1.0
+        disc = b * b - c
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        t_s = torch.where(disc > 0.0, -b - sq, math.inf)
+        t_s = torch.where(t_s > _EPS, t_s, math.inf)
 
-    t_p = (-1.0 - roz) / torch.where(torch.abs(rdz) < 1e-9, 1e-9, rdz)
-    t_p = torch.where((t_p > _EPS) & (torch.abs(rdz) > 1e-9), t_p, math.inf)
+        t_p = (-1.0 - roz) / torch.where(torch.abs(rdz) < 1e-9, 1e-9, rdz)
+        t_p = torch.where((t_p > _EPS) & (torch.abs(rdz) > 1e-9), t_p,
+                          math.inf)
 
-    is_sphere = t_s < t_p
-    t = torch.minimum(t_s, t_p)
-    hit = torch.isfinite(t)
-    ts = torch.where(hit, t, 0.0)  # keep miss-lane positions finite
-    px, py, pz = rox + ts * rdx, roy + ts * rdy, roz + ts * rdz
-    inrm = torch.rsqrt(torch.clamp(px * px + py * py + pz * pz, min=1e-24))
-    nx = torch.where(is_sphere, px * inrm, 0.0)
-    ny = torch.where(is_sphere, py * inrm, 0.0)
-    nz = torch.where(is_sphere, pz * inrm, 1.0)
-    return hit, t, nx, ny, nz, is_sphere, px, py, pz
+        is_sphere = t_s < t_p
+        t = torch.minimum(t_s, t_p)
+        hit = torch.isfinite(t)
+        ts = torch.where(hit, t, 0.0)  # keep miss-lane positions finite
+        px, py, pz = rox + ts * rdx, roy + ts * rdy, roz + ts * rdz
+        inrm = torch.rsqrt(torch.clamp(px * px + py * py + pz * pz, min=1e-24))
+        nx = torch.where(is_sphere, px * inrm, 0.0)
+        ny = torch.where(is_sphere, py * inrm, 0.0)
+        nz = torch.where(is_sphere, pz * inrm, 1.0)
+        return hit, t, nx, ny, nz, is_sphere, px, py, pz
 
 
 def _build_frame_soa(nx, ny, nz):
@@ -680,39 +689,40 @@ def _render_generic(mats, light_dir, light_rad, sky_rad, ro, rd, u):
     alive = torch.ones(n_rays, dtype=torch.bool, device=rd.device)
     light = torch.broadcast_to(light_dir, rd.shape)
     for u_b in u:
-        hit, t, n, is_sphere = _intersect(ro, rd)
+        with span("dj.render.bounce"):
+            hit, t, n, is_sphere = _intersect(ro, rd)
 
-        # miss -> sky
-        radiance = radiance + torch.where(
-            (alive & ~hit)[..., None], throughput * sky_rad, 0.0)
-        alive = alive & hit
+            # miss -> sky
+            radiance = radiance + torch.where(
+                (alive & ~hit)[..., None], throughput * sky_rad, 0.0)
+            alive = alive & hit
 
-        pos = ro + t[..., None] * rd
-        o_loc = world_to_local(n, -rd)
-        mats_b = _mats_at_hit(mats, is_sphere,
-                              torch.where(hit[..., None], pos, ro))
+            pos = ro + t[..., None] * rd
+            o_loc = world_to_local(n, -rd)
+            mats_b = _mats_at_hit(mats, is_sphere,
+                                  torch.where(hit[..., None], pos, ro))
 
-        # next-event estimation toward the delta light
-        i_loc = world_to_local(n, light)
-        shadow_o = pos + n * _EPS * 3.0
-        lit = ~_occluded(shadow_o, light)
+            # next-event estimation toward the delta light
+            i_loc = world_to_local(n, light)
+            shadow_o = pos + n * _EPS * 3.0
+            lit = ~_occluded(shadow_o, light)
 
-        f = _material_eval(mats_b, is_sphere, "evalp", i_loc, o_loc)
-        w, i_s, pdf = _material_eval(mats_b, is_sphere, "evalp_is",
-                                     u_b[:, 0], u_b[:, 1], o_loc)
+            f = _material_eval(mats_b, is_sphere, "evalp", i_loc, o_loc)
+            w, i_s, pdf = _material_eval(mats_b, is_sphere, "evalp_is",
+                                         u_b[:, 0], u_b[:, 1], o_loc)
 
-        contrib = throughput * light_rad * f
-        ok = alive & lit & (i_loc[..., 2] > 0.0) & (o_loc[..., 2] > 0.0)
-        radiance = radiance + torch.where(ok[..., None], contrib, 0.0)
+            contrib = throughput * light_rad * f
+            ok = alive & lit & (i_loc[..., 2] > 0.0) & (o_loc[..., 2] > 0.0)
+            radiance = radiance + torch.where(ok[..., None], contrib, 0.0)
 
-        throughput = throughput * torch.where(alive[..., None], w, 1.0)
-        alive = alive & (pdf > 0.0) & (i_s[..., 2] > 0.0)
-        # detached sampling — see _bounce_soa
-        i_s = i_s.detach()
-        rd_new = normalize(local_to_world(n, i_s), eps=1e-12)
-        ro_new = pos + n * _EPS * 3.0
-        ro = torch.where(alive[..., None], ro_new, ro)
-        rd = torch.where(alive[..., None], rd_new, rd)
+            throughput = throughput * torch.where(alive[..., None], w, 1.0)
+            alive = alive & (pdf > 0.0) & (i_s[..., 2] > 0.0)
+            # detached sampling — see _bounce_soa
+            i_s = i_s.detach()
+            rd_new = normalize(local_to_world(n, i_s), eps=1e-12)
+            ro_new = pos + n * _EPS * 3.0
+            ro = torch.where(alive[..., None], ro_new, ro)
+            rd = torch.where(alive[..., None], rd_new, rd)
     # terminate remaining paths into the sky
     hit, _, _, _ = _intersect(ro, rd)
     return radiance + torch.where((alive & ~hit)[..., None],
@@ -732,8 +742,9 @@ def _render_envmap(mats, em, ro, rd, u, u_env):
 
     def env_lookup(d):
         """radiance + sampling pdf toward d: one packed row read."""
-        r, g, b, pdf = em.eval_with_pdf(d[..., 0], d[..., 1], d[..., 2])
-        return torch.stack([r, g, b], -1), pdf
+        with span("dj.render.envmap"):
+            r, g, b, pdf = em.eval_with_pdf(d[..., 0], d[..., 1], d[..., 2])
+            return torch.stack([r, g, b], -1), pdf
 
     n_rays = rd.shape[0]
     throughput = torch.ones_like(rd)
@@ -742,53 +753,55 @@ def _render_envmap(mats, em, ro, rd, u, u_env):
     prev_pdf = torch.full((n_rays,), -1.0, dtype=torch.float32,
                           device=rd.device)
     for u_bsdf, u_nee in zip(u, u_env):
-        hit, t, n, is_sphere = _intersect(ro, rd)
+        with span("dj.render.bounce"):
+            hit, t, n, is_sphere = _intersect(ro, rd)
 
-        # miss -> envmap radiance, MIS-weighted against the pdf of the
-        # BSDF sample that produced this segment (prev_pdf < 0 marks the
-        # deterministic camera ray: weight 1)
-        le_miss, pdf_env_rd = env_lookup(rd)
-        w_mis = torch.where(prev_pdf < 0.0, 1.0,
-                            power_heuristic(prev_pdf, pdf_env_rd))
-        miss = alive & ~hit
-        radiance = radiance + torch.where(
-            miss[..., None], throughput * le_miss * w_mis[..., None], 0.0)
-        alive = alive & hit
+            # miss -> envmap radiance, MIS-weighted against the pdf of the
+            # BSDF sample that produced this segment (prev_pdf < 0 marks the
+            # deterministic camera ray: weight 1)
+            le_miss, pdf_env_rd = env_lookup(rd)
+            w_mis = torch.where(prev_pdf < 0.0, 1.0,
+                                power_heuristic(prev_pdf, pdf_env_rd))
+            miss = alive & ~hit
+            radiance = radiance + torch.where(
+                miss[..., None], throughput * le_miss * w_mis[..., None], 0.0)
+            alive = alive & hit
 
-        pos = ro + t[..., None] * rd
-        o_loc = world_to_local(n, -rd)
-        mats_b = _mats_at_hit(mats, is_sphere,
-                              torch.where(hit[..., None], pos, ro))
+            pos = ro + t[..., None] * rd
+            o_loc = world_to_local(n, -rd)
+            mats_b = _mats_at_hit(mats, is_sphere,
+                                  torch.where(hit[..., None], pos, ro))
 
-        # next-event estimation: one envmap importance sample
-        ldx, ldy, ldz, pdf_l = em.sample(u_nee[:, 0], u_nee[:, 1],
-                                         u_nee[:, 2])
-        l_world = torch.stack([ldx, ldy, ldz], -1)
-        l_loc = world_to_local(n, l_world)
-        shadow_o = pos + n * _EPS * 3.0
-        lit = ~_occluded(shadow_o, l_world)
+            # next-event estimation: one envmap importance sample
+            with span("dj.render.envmap"):
+                ldx, ldy, ldz, pdf_l = em.sample(u_nee[:, 0], u_nee[:, 1],
+                                                 u_nee[:, 2])
+            l_world = torch.stack([ldx, ldy, ldz], -1)
+            l_loc = world_to_local(n, l_world)
+            shadow_o = pos + n * _EPS * 3.0
+            lit = ~_occluded(shadow_o, l_world)
 
-        f = _material_eval(mats_b, is_sphere, "evalp", l_loc, o_loc)
-        pdf_b_at_l = _material_eval(mats_b, is_sphere, "pdf", l_loc, o_loc)
-        le, _ = env_lookup(l_world)
-        w_nee = power_heuristic(pdf_l, torch.clamp(pdf_b_at_l, min=0.0))
-        contrib = (throughput * le * f
-                   * (w_nee / torch.clamp(pdf_l, min=1e-12))[..., None])
-        ok = alive & lit & (l_loc[..., 2] > 0.0) & (o_loc[..., 2] > 0.0)
-        radiance = radiance + torch.where(ok[..., None], contrib, 0.0)
+            f = _material_eval(mats_b, is_sphere, "evalp", l_loc, o_loc)
+            pdf_b_at_l = _material_eval(mats_b, is_sphere, "pdf", l_loc, o_loc)
+            le, _ = env_lookup(l_world)
+            w_nee = power_heuristic(pdf_l, torch.clamp(pdf_b_at_l, min=0.0))
+            contrib = (throughput * le * f
+                       * (w_nee / torch.clamp(pdf_l, min=1e-12))[..., None])
+            ok = alive & lit & (l_loc[..., 2] > 0.0) & (o_loc[..., 2] > 0.0)
+            radiance = radiance + torch.where(ok[..., None], contrib, 0.0)
 
-        # BSDF sampling continues the path; its pdf feeds the next
-        # segment's MIS weight
-        w, i_s, pdf = _material_eval(mats_b, is_sphere, "evalp_is",
-                                     u_bsdf[:, 0], u_bsdf[:, 1], o_loc)
-        throughput = throughput * torch.where(alive[..., None], w, 1.0)
-        alive = alive & (pdf > 0.0) & (i_s[..., 2] > 0.0)
-        # detached sampling — see _bounce_soa
-        i_s = i_s.detach()
-        rd_new = normalize(local_to_world(n, i_s), eps=1e-12)
-        ro = torch.where(alive[..., None], shadow_o, ro)
-        rd = torch.where(alive[..., None], rd_new, rd)
-        prev_pdf = torch.where(alive, pdf, prev_pdf)
+            # BSDF sampling continues the path; its pdf feeds the next
+            # segment's MIS weight
+            w, i_s, pdf = _material_eval(mats_b, is_sphere, "evalp_is",
+                                         u_bsdf[:, 0], u_bsdf[:, 1], o_loc)
+            throughput = throughput * torch.where(alive[..., None], w, 1.0)
+            alive = alive & (pdf > 0.0) & (i_s[..., 2] > 0.0)
+            # detached sampling — see _bounce_soa
+            i_s = i_s.detach()
+            rd_new = normalize(local_to_world(n, i_s), eps=1e-12)
+            ro = torch.where(alive[..., None], shadow_o, ro)
+            rd = torch.where(alive[..., None], rd_new, rd)
+            prev_pdf = torch.where(alive, pdf, prev_pdf)
     # terminate remaining live paths into the envmap (MIS-weighted)
     hit, _, _, _ = _intersect(ro, rd)
     miss = alive & ~hit
@@ -906,8 +919,9 @@ def _render_soa(infos, light_dir, light_rad, sky_rad, ro, rd, u,
 
     def run_bounces(state, cone, u_bounces):
         for u_b in u_bounces:
-            state, cone = _bounce_soa(infos, tex_ctx, state, cone, u_b,
-                                      light_dir, light_rad, sky_rad)
+            with span("dj.render.bounce"):
+                state, cone = _bounce_soa(infos, tex_ctx, state, cone, u_b,
+                                          light_dir, light_rad, sky_rad)
         return state
 
     dedup = (dedup_ok and spp > 1
@@ -931,69 +945,71 @@ def _render_soa(infos, light_dir, light_rad, sky_rad, ro, rd, u,
     def tile(a):
         return a.repeat(spp)
 
-    rox_p, roy_p, roz_p = ro[:P, 0], ro[:P, 1], ro[:P, 2]
-    rdx_p, rdy_p, rdz_p = rd[:P, 0], rd[:P, 1], rd[:P, 2]
-    hit_p, t_p, nx_p, ny_p, nz_p, is_sph_p, px_p, py_p, pz_p = \
-        _intersect_soa(rox_p, roy_p, roz_p, rdx_p, rdy_p, rdz_p)
-    cw_p = (cone_spread0 * torch.where(hit_p, t_p, 0.0)
-            if track_lod else None)
-    tx_p, ty_p, tz_p, bx_p, by_p, bz_p = _build_frame_soa(nx_p, ny_p, nz_p)
-    ox_p = -(rdx_p * tx_p + rdy_p * ty_p + rdz_p * tz_p)
-    oy_p = -(rdx_p * bx_p + rdy_p * by_p + rdz_p * bz_p)
-    oz_p = -(rdx_p * nx_p + rdy_p * ny_p + rdz_p * nz_p)
-    lx_p = ldx * tx_p + ldy * ty_p + ldz * tz_p
-    ly_p = ldx * bx_p + ldy * by_p + ldz * bz_p
-    lz_p = ldx * nx_p + ldy * ny_p + ldz * nz_p
-    sox_p, soy_p, soz_p = (px_p + nx_p * off, py_p + ny_p * off,
-                           pz_p + nz_p * off)
-    s_hit_p = _intersect_soa(sox_p, soy_p, soz_p, ldx.expand_as(sox_p),
-                             ldy.expand_as(sox_p), ldz.expand_as(sox_p))[0]
-    pv_p, fres_p = _resolve_scene(infos, tex_ctx, is_sph_p, px_p, py_p,
-                                  pz_p, cone_w=cw_p)
-    fr_p, fg_p, fb_p = _fused_nee_eval(infos, pv_p, fres_p, is_sph_p,
-                                       (lx_p, ly_p, lz_p),
-                                       (ox_p, oy_p, oz_p))
-    # per-pixel radiance terms of bounce 1 (throughput = 1, all alive)
-    ok_p = hit_p & ~s_hit_p & (lz_p > 0.0) & (oz_p > 0.0)
-    ra1_r = (torch.where(~hit_p, sk_r, 0.0)
-             + torch.where(ok_p, lr_r * fr_p, 0.0))
-    ra1_g = (torch.where(~hit_p, sk_g, 0.0)
-             + torch.where(ok_p, lr_g * fg_p, 0.0))
-    ra1_b = (torch.where(~hit_p, sk_b, 0.0)
-             + torch.where(ok_p, lr_b * fb_p, 0.0))
+    with span("dj.render.bounce"):
+        rox_p, roy_p, roz_p = ro[:P, 0], ro[:P, 1], ro[:P, 2]
+        rdx_p, rdy_p, rdz_p = rd[:P, 0], rd[:P, 1], rd[:P, 2]
+        hit_p, t_p, nx_p, ny_p, nz_p, is_sph_p, px_p, py_p, pz_p = \
+            _intersect_soa(rox_p, roy_p, roz_p, rdx_p, rdy_p, rdz_p)
+        cw_p = (cone_spread0 * torch.where(hit_p, t_p, 0.0)
+                if track_lod else None)
+        tx_p, ty_p, tz_p, bx_p, by_p, bz_p = _build_frame_soa(nx_p, ny_p, nz_p)
+        ox_p = -(rdx_p * tx_p + rdy_p * ty_p + rdz_p * tz_p)
+        oy_p = -(rdx_p * bx_p + rdy_p * by_p + rdz_p * bz_p)
+        oz_p = -(rdx_p * nx_p + rdy_p * ny_p + rdz_p * nz_p)
+        lx_p = ldx * tx_p + ldy * ty_p + ldz * tz_p
+        ly_p = ldx * bx_p + ldy * by_p + ldz * bz_p
+        lz_p = ldx * nx_p + ldy * ny_p + ldz * nz_p
+        sox_p, soy_p, soz_p = (px_p + nx_p * off, py_p + ny_p * off,
+                               pz_p + nz_p * off)
+        s_hit_p = _intersect_soa(sox_p, soy_p, soz_p, ldx.expand_as(sox_p),
+                                 ldy.expand_as(sox_p), ldz.expand_as(sox_p))[0]
+        pv_p, fres_p = _resolve_scene(infos, tex_ctx, is_sph_p, px_p, py_p,
+                                      pz_p, cone_w=cw_p)
+        fr_p, fg_p, fb_p = _fused_nee_eval(infos, pv_p, fres_p, is_sph_p,
+                                           (lx_p, ly_p, lz_p),
+                                           (ox_p, oy_p, oz_p))
+        # per-pixel radiance terms of bounce 1 (throughput = 1, all alive)
+        ok_p = hit_p & ~s_hit_p & (lz_p > 0.0) & (oz_p > 0.0)
+        ra1_r = (torch.where(~hit_p, sk_r, 0.0)
+                 + torch.where(ok_p, lr_r * fr_p, 0.0))
+        ra1_g = (torch.where(~hit_p, sk_g, 0.0)
+                 + torch.where(ok_p, lr_g * fg_p, 0.0))
+        ra1_b = (torch.where(~hit_p, sk_b, 0.0)
+                 + torch.where(ok_p, lr_b * fb_p, 0.0))
 
-    # the sampler consumes per-copy randoms: full ray count (the
-    # per-pixel pvec and Fresnel tiled with the other per-pixel values)
-    alive1 = tile(hit_p)
-    is_sph1 = tile(is_sph_p)
-    o1 = (tile(ox_p), tile(oy_p), tile(oz_p))
-    pv1t = pv_p.repeat(1, spp)
-    fres1t = _make_fres_fn(infos, is_sph1, pv1t)
-    wr1, wg1, wb1, ix1, iy1, iz1, pdf1 = _fused_sample(
-        infos, pv1t, fres1t, is_sph1, u[0][0], u[0][1], o1)
-    th_r = torch.where(alive1, wr1, 1.0)
-    th_g = torch.where(alive1, wg1, 1.0)
-    th_b = torch.where(alive1, wb1, 1.0)
-    alive1 = alive1 & (pdf1 > 0.0) & (iz1 > 0.0)
-    # detached sampling — see the bounce body
-    ix1, iy1, iz1 = ix1.detach(), iy1.detach(), iz1.detach()
-    wx = ix1 * tile(tx_p) + iy1 * tile(bx_p) + iz1 * tile(nx_p)
-    wy = ix1 * tile(ty_p) + iy1 * tile(by_p) + iz1 * tile(ny_p)
-    wz = ix1 * tile(tz_p) + iy1 * tile(bz_p) + iz1 * tile(nz_p)
-    inrm1 = torch.rsqrt(torch.clamp(wx * wx + wy * wy + wz * wz, min=1e-12))
-    state = (torch.where(alive1, tile(sox_p), tile(rox_p)),
-             torch.where(alive1, tile(soy_p), tile(roy_p)),
-             torch.where(alive1, tile(soz_p), tile(roz_p)),
-             torch.where(alive1, wx * inrm1, tile(rdx_p)),
-             torch.where(alive1, wy * inrm1, tile(rdy_p)),
-             torch.where(alive1, wz * inrm1, tile(rdz_p)),
-             th_r, th_g, th_b,
-             tile(ra1_r), tile(ra1_g), tile(ra1_b),
-             alive1)
-    cone = None
-    if track_lod:
-        cone = (tile(cw_p), cone_spread0 + torch.where(
-            alive1, torch.clamp(pv1t[0], max=1.0), 0.0))
+        # the sampler consumes per-copy randoms: full ray count (the
+        # per-pixel pvec and Fresnel tiled with the other per-pixel values)
+        alive1 = tile(hit_p)
+        is_sph1 = tile(is_sph_p)
+        o1 = (tile(ox_p), tile(oy_p), tile(oz_p))
+        pv1t = pv_p.repeat(1, spp)
+        fres1t = _make_fres_fn(infos, is_sph1, pv1t)
+        wr1, wg1, wb1, ix1, iy1, iz1, pdf1 = _fused_sample(
+            infos, pv1t, fres1t, is_sph1, u[0][0], u[0][1], o1)
+        th_r = torch.where(alive1, wr1, 1.0)
+        th_g = torch.where(alive1, wg1, 1.0)
+        th_b = torch.where(alive1, wb1, 1.0)
+        alive1 = alive1 & (pdf1 > 0.0) & (iz1 > 0.0)
+        # detached sampling — see the bounce body
+        ix1, iy1, iz1 = ix1.detach(), iy1.detach(), iz1.detach()
+        wx = ix1 * tile(tx_p) + iy1 * tile(bx_p) + iz1 * tile(nx_p)
+        wy = ix1 * tile(ty_p) + iy1 * tile(by_p) + iz1 * tile(ny_p)
+        wz = ix1 * tile(tz_p) + iy1 * tile(bz_p) + iz1 * tile(nz_p)
+        inrm1 = torch.rsqrt(torch.clamp(wx * wx + wy * wy + wz * wz,
+                                        min=1e-12))
+        state = (torch.where(alive1, tile(sox_p), tile(rox_p)),
+                 torch.where(alive1, tile(soy_p), tile(roy_p)),
+                 torch.where(alive1, tile(soz_p), tile(roz_p)),
+                 torch.where(alive1, wx * inrm1, tile(rdx_p)),
+                 torch.where(alive1, wy * inrm1, tile(rdy_p)),
+                 torch.where(alive1, wz * inrm1, tile(rdz_p)),
+                 th_r, th_g, th_b,
+                 tile(ra1_r), tile(ra1_g), tile(ra1_b),
+                 alive1)
+        cone = None
+        if track_lod:
+            cone = (tile(cw_p), cone_spread0 + torch.where(
+                alive1, torch.clamp(pv1t[0], max=1.0), 0.0))
     return _finish_soa(run_bounces(state, cone, u[1:]), sk_r, sk_g, sk_b)
 
 
@@ -1045,101 +1061,105 @@ def _render_envmap_soa(infos, em, ro, rd, u, u_env,
         cw = torch.zeros(n_rays, **f32)
         cs = torch.full((n_rays,), cone_spread0, **f32)
     for u_bsdf, u_nee in zip(u, u_env):
-        hit, t, nx, ny, nz, is_sphere, px, py, pz = _intersect_soa(
-            rox, roy, roz, rdx, rdy, rdz)
-        if track_lod:
-            cw = cw + cs * torch.where(hit, t, 0.0)
-        miss = alive & ~hit
+        with span("dj.render.bounce"):
+            hit, t, nx, ny, nz, is_sphere, px, py, pz = _intersect_soa(
+                rox, roy, roz, rdx, rdy, rdz)
+            if track_lod:
+                cw = cw + cs * torch.where(hit, t, 0.0)
+            miss = alive & ~hit
 
-        # emitter importance draw: grid position + exact bin density
-        # from ONE alias-row read
-        tg, pg, pb_l = em.sample_grid(u_nee[0], u_nee[1], u_nee[2])
-        theta_l = tg * (math.pi / h_em)
-        phi_l = pg * (2.0 * math.pi / w_em)
-        sin_l = torch.sin(theta_l)
-        llx = sin_l * torch.cos(phi_l)
-        lly = sin_l * torch.sin(phi_l)
-        llz = torch.cos(theta_l)
-        ldx, ldy, ldz = em._to_world(llx, lly, llz)
-        pdf_l = pb_l / torch.clamp(sin_l, min=1e-6)
+            with span("dj.render.envmap"):
+                # emitter importance draw: grid position + exact bin density
+                # from ONE alias-row read
+                tg, pg, pb_l = em.sample_grid(u_nee[0], u_nee[1], u_nee[2])
+                theta_l = tg * (math.pi / h_em)
+                phi_l = pg * (2.0 * math.pi / w_em)
+                sin_l = torch.sin(theta_l)
+                llx = sin_l * torch.cos(phi_l)
+                lly = sin_l * torch.sin(phi_l)
+                llz = torch.cos(theta_l)
+                ldx, ldy, ldz = em._to_world(llx, lly, llz)
+                pdf_l = pb_l / torch.clamp(sin_l, min=1e-6)
 
-        # one packed read: miss lanes at the segment direction's cell,
-        # surviving lanes at the NEE cell (disjoint)
-        mlx, mly, mlz = em._to_local(rdx, rdy, rdz)
-        idx_m, f1m, f2m, sin_m = em._cell(mlx, mly, mlz)
-        idx_n, f1n, f2n = em._cell_from_grid(tg, pg)
-        idx = torch.where(miss, idx_m, idx_n)
-        f1 = torch.where(miss, f1m, f1n)
-        f2 = torch.where(miss, f2m, f2n)
-        cr, cg, cb, pb_sel = em._lookup(idx, f1, f2)
+                # one packed read: miss lanes at the segment direction's cell,
+                # surviving lanes at the NEE cell (disjoint)
+                mlx, mly, mlz = em._to_local(rdx, rdy, rdz)
+                idx_m, f1m, f2m, sin_m = em._cell(mlx, mly, mlz)
+                idx_n, f1n, f2n = em._cell_from_grid(tg, pg)
+                idx = torch.where(miss, idx_m, idx_n)
+                f1 = torch.where(miss, f1m, f1n)
+                f2 = torch.where(miss, f2m, f2n)
+                cr, cg, cb, pb_sel = em._lookup(idx, f1, f2)
 
-        # miss -> envmap radiance with MIS against the generating BSDF
-        # pdf (prev_pdf < 0 marks the camera ray)
-        pdf_env_rd = pb_sel / sin_m
-        w_mis = torch.where(prev_pdf < 0.0, 1.0,
-                            power_heuristic(prev_pdf, pdf_env_rd))
-        ra_r = ra_r + torch.where(miss, th_r * cr * w_mis, 0.0)
-        ra_g = ra_g + torch.where(miss, th_g * cg * w_mis, 0.0)
-        ra_b = ra_b + torch.where(miss, th_b * cb * w_mis, 0.0)
-        alive = alive & hit
+                # miss -> envmap radiance with MIS against the generating BSDF
+                # pdf (prev_pdf < 0 marks the camera ray)
+                pdf_env_rd = pb_sel / sin_m
+                w_mis = torch.where(prev_pdf < 0.0, 1.0,
+                                    power_heuristic(prev_pdf, pdf_env_rd))
+                ra_r = ra_r + torch.where(miss, th_r * cr * w_mis, 0.0)
+                ra_g = ra_g + torch.where(miss, th_g * cg * w_mis, 0.0)
+                ra_b = ra_b + torch.where(miss, th_b * cb * w_mis, 0.0)
+                alive = alive & hit
 
-        tx, ty, tz, bx, by, bz = _build_frame_soa(nx, ny, nz)
-        ox = -(rdx * tx + rdy * ty + rdz * tz)
-        oy = -(rdx * bx + rdy * by + rdz * bz)
-        oz = -(rdx * nx + rdy * ny + rdz * nz)
+            tx, ty, tz, bx, by, bz = _build_frame_soa(nx, ny, nz)
+            ox = -(rdx * tx + rdy * ty + rdz * tz)
+            oy = -(rdx * bx + rdy * by + rdz * bz)
+            oz = -(rdx * nx + rdy * ny + rdz * nz)
 
-        # NEE radiance: the same read's values on the surviving lanes
-        lx = ldx * tx + ldy * ty + ldz * tz
-        ly = ldx * bx + ldy * by + ldz * bz
-        lz = ldx * nx + ldy * ny + ldz * nz
+            # NEE radiance: the same read's values on the surviving lanes
+            lx = ldx * tx + ldy * ty + ldz * tz
+            ly = ldx * bx + ldy * by + ldz * bz
+            lz = ldx * nx + ldy * ny + ldz * nz
 
-        sox, soy, soz = px + nx * off, py + ny * off, pz + nz * off
-        lit = ~_intersect_soa(sox, soy, soz, ldx, ldy, ldz)[0]
+            sox, soy, soz = px + nx * off, py + ny * off, pz + nz * off
+            lit = ~_intersect_soa(sox, soy, soz, ldx, ldy, ldz)[0]
 
-        pv, fres_fn = _resolve_scene(infos, tex_ctx, is_sphere, px, py, pz,
-                                     cone_w=cw)
-        (fr, fg, fb, pdf_nee, wr, wg, wb, ixl, iyl, izl,
-         pdf) = _fused_nee_and_sample(
-            infos, pv, fres_fn, is_sphere, (lx, ly, lz), u_bsdf[0],
-            u_bsdf[1], (ox, oy, oz), with_pdf=True)
+            pv, fres_fn = _resolve_scene(infos, tex_ctx, is_sphere, px, py, pz,
+                                         cone_w=cw)
+            (fr, fg, fb, pdf_nee, wr, wg, wb, ixl, iyl, izl,
+             pdf) = _fused_nee_and_sample(
+                infos, pv, fres_fn, is_sphere, (lx, ly, lz), u_bsdf[0],
+                u_bsdf[1], (ox, oy, oz), with_pdf=True)
 
-        w_nee = (power_heuristic(pdf_l, pdf_nee)
-                 / torch.clamp(pdf_l, min=1e-12))
-        ok = alive & lit & (lz > 0.0) & (oz > 0.0)
-        scale = torch.where(ok, w_nee, 0.0)
-        ra_r = ra_r + th_r * cr * fr * scale
-        ra_g = ra_g + th_g * cg * fg * scale
-        ra_b = ra_b + th_b * cb * fb * scale
+            with span("dj.render.envmap"):
+                w_nee = (power_heuristic(pdf_l, pdf_nee)
+                         / torch.clamp(pdf_l, min=1e-12))
+            ok = alive & lit & (lz > 0.0) & (oz > 0.0)
+            scale = torch.where(ok, w_nee, 0.0)
+            ra_r = ra_r + th_r * cr * fr * scale
+            ra_g = ra_g + th_g * cg * fg * scale
+            ra_b = ra_b + th_b * cb * fb * scale
 
-        th_r = th_r * torch.where(alive, wr, 1.0)
-        th_g = th_g * torch.where(alive, wg, 1.0)
-        th_b = th_b * torch.where(alive, wb, 1.0)
-        alive = alive & (pdf > 0.0) & (izl > 0.0)
+            th_r = th_r * torch.where(alive, wr, 1.0)
+            th_g = th_g * torch.where(alive, wg, 1.0)
+            th_b = th_b * torch.where(alive, wb, 1.0)
+            alive = alive & (pdf > 0.0) & (izl > 0.0)
 
-        # detached sampling — see _bounce_soa
-        ixl, iyl, izl = ixl.detach(), iyl.detach(), izl.detach()
-        wx = ixl * tx + iyl * bx + izl * nx
-        wy = ixl * ty + iyl * by + izl * ny
-        wz = ixl * tz + iyl * bz + izl * nz
-        inrm = torch.rsqrt(torch.clamp(wx * wx + wy * wy + wz * wz,
-                                       min=1e-12))
-        rdx = torch.where(alive, wx * inrm, rdx)
-        rdy = torch.where(alive, wy * inrm, rdy)
-        rdz = torch.where(alive, wz * inrm, rdz)
-        rox = torch.where(alive, sox, rox)
-        roy = torch.where(alive, soy, roy)
-        roz = torch.where(alive, soz, roz)
-        prev_pdf = torch.where(alive, pdf, prev_pdf)
-        if track_lod:
-            cs = cs + torch.where(alive, torch.clamp(pv[0], max=1.0), 0.0)
+            # detached sampling — see _bounce_soa
+            ixl, iyl, izl = ixl.detach(), iyl.detach(), izl.detach()
+            wx = ixl * tx + iyl * bx + izl * nx
+            wy = ixl * ty + iyl * by + izl * ny
+            wz = ixl * tz + iyl * bz + izl * nz
+            inrm = torch.rsqrt(torch.clamp(wx * wx + wy * wy + wz * wz,
+                                           min=1e-12))
+            rdx = torch.where(alive, wx * inrm, rdx)
+            rdy = torch.where(alive, wy * inrm, rdy)
+            rdz = torch.where(alive, wz * inrm, rdz)
+            rox = torch.where(alive, sox, rox)
+            roy = torch.where(alive, soy, roy)
+            roz = torch.where(alive, soz, roz)
+            prev_pdf = torch.where(alive, pdf, prev_pdf)
+            if track_lod:
+                cs = cs + torch.where(alive, torch.clamp(pv[0], max=1.0), 0.0)
 
     # terminate remaining live paths into the envmap (MIS-weighted)
     hit = _intersect_soa(rox, roy, roz, rdx, rdy, rdz)[0]
     miss = alive & ~hit
-    mr, mg, mb, pdf_env_fin = em.eval_with_pdf(rdx, rdy, rdz)
-    w_mis = torch.where(prev_pdf < 0.0, 1.0,
-                        power_heuristic(prev_pdf, pdf_env_fin))
-    ra_r = ra_r + torch.where(miss, th_r * mr * w_mis, 0.0)
-    ra_g = ra_g + torch.where(miss, th_g * mg * w_mis, 0.0)
-    ra_b = ra_b + torch.where(miss, th_b * mb * w_mis, 0.0)
+    with span("dj.render.envmap"):
+        mr, mg, mb, pdf_env_fin = em.eval_with_pdf(rdx, rdy, rdz)
+        w_mis = torch.where(prev_pdf < 0.0, 1.0,
+                            power_heuristic(prev_pdf, pdf_env_fin))
+        ra_r = ra_r + torch.where(miss, th_r * mr * w_mis, 0.0)
+        ra_g = ra_g + torch.where(miss, th_g * mg * w_mis, 0.0)
+        ra_b = ra_b + torch.where(miss, th_b * mb * w_mis, 0.0)
     return torch.stack([ra_r, ra_g, ra_b], -1)
